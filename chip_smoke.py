@@ -25,21 +25,46 @@ Phases, each of which fails the run (exit code 1) on any disagreement:
    ``run(65536)`` with ``auto`` and with the plain ``hoisted`` scan on the
    card; the routed pairs and estimated groups must be equal.
 
-Phases 3 and 4 are the main path: the kernels' launch counts are set to
-zero before them and read after, and a kernel launched no time there
-fails the run. The script prints one JSON line of kernel results, the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Without
-a CUDA device, or without the repository beside it, it exits non-zero and
-prints no result."""
+5. Attention kernels: builds the attention library (``nvcc``, started
+   in the background before phase 2, one process per source) and holds
+   ``flash_attention_cuda`` and ``decode_attention_cuda`` against their
+   plain PyTorch versions at the LM path's shapes (flash: B = 4, H = 32,
+   Sq = 2048, Sk = 2560, D = 80, causal; decode: the same cache,
+   kv_len 2049..2080, one split), a GQA shape (G = 4, D = 128), a ragged
+   non-causal shape and a partial kv_len with wholly masked splits, in
+   bfloat16 (2e-2) and float32 (1e-5). Times each at the LM shapes in
+   bfloat16 beside its plain version and one PyTorch call for the same
+   function (``scaled_dot_product_attention``; timed only).
+6. LM serving: stablelm-3b at full width and depth in bfloat16, weights
+   drawn from ``torch.Generator(device="cuda").manual_seed(0)``, B = 4
+   prompts of 2048 tokens into a 2560-slot cache, ``prefill`` then 32
+   greedy ``decode_step``s through the kernels: 32 flash launches and
+   32 x 32 decode launches. The same prompts through ``attn_impl="ref"``
+   on the card, fed the kernel path's tokens: the prefill logits and the
+   first decode step's must agree within 3e-2 of the largest logit; the
+   same check in float32 at full width with the depth cut to 2 layers,
+   within 2e-5. Greedy-token agreement is reported, not gated. Last, a
+   prefill and 8 decode steps through the kernels under
+   ``torch.profiler``: kernel launches, device busy time and share, and
+   the attention kernels' share of it.
+
+Phases 3 and 4 are the moscore main path and phase 6's kernel run the LM
+main path: the kernels' launch counts are set to zero before each and
+read after, and a kernel launched no time there fails the run. The script
+prints one JSON line of kernel results, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+repository beside it, it exits non-zero and prints no result."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -47,10 +72,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet; see PERF.md): HBM bytes/s and dense
-# float32 outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet; see PERF.md): HBM bytes/s, dense
+# float32 outside the tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # dependent float32 issue latency assumed by the serial floor (cycles)
 DEP_CYCLES = 4
 
@@ -63,6 +89,17 @@ SCALE_PAIRS, SCALE_USERS, SCALE_WINDOW, SCALE_REQUESTS = \
     1024, 100_000, 4096, 65_536
 RECORDS = ("pair", "g_est", "g_true", "latency", "energy", "map")
 KERNELS = ("moscore_cuda", "moscore_hoisted_cuda")
+# the LM serving path: stablelm-3b, B prompts of PROMPT tokens, a MAX_SEQ
+# cache, STEPS greedy decode steps
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_STEPS = \
+    "stablelm-3b", 4, 2048, 2560, 32
+LM_KV_LEN = (2049, 2059, 2069, 2080)      # decode check: kv_len per row
+# logits through the kernels against the plain path, relative to the
+# largest logit: about 2x (bf16) and 6x (fp32, 2 layers) the largest
+# errors an H100 has shown (PERF.md)
+LM_BF16_BOUND, LM_F32_BOUND, LM_F32_LAYERS = 3e-2, 2e-5, 2
+LM_TRACED_STEPS = 8
+ATT_KERNELS = ("flash_attention_cuda", "decode_attention_cuda")
 
 
 class SmokeFailure(Exception):
@@ -314,14 +351,352 @@ def scale_phase(dev):
                       "requests": SCALE_REQUESTS}), flush=True)
 
 
+# ----------------------------------------------------- attention kernels --
+
+def _close(got, want, rtol, atol) -> tuple[bool, float]:
+    """``torch.testing.assert_close``'s test, and the largest |got - want|."""
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    ok = bool((diff <= atol + rtol * want.abs()).all())
+    return ok and bool(torch.isfinite(got).all()), float(diff.max())
+
+
+def _tol(dtype) -> tuple[float, float]:
+    """(rtol, atol) by the output's dtype: both versions compute in float32
+    from the same inputs, so float32 differs in the order of sums, bfloat16
+    also in its rounding (tests/test_kernels.py::_tol)."""
+    return (1e-5, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+
+
+def _randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def flash_case(gen, b, sq, sk, h, kv, d, dtype):
+    q = _randn(gen, (b, sq, h, d), dtype)
+    k = _randn(gen, (b, sk, kv, d), dtype)
+    v = _randn(gen, (b, sk, kv, d), dtype)
+    return q, k, v
+
+
+def flash_bound(b, sq, sk, h, kv, d, causal, elt):
+    """Least time (ms): Q and O once, the K/V rows the mask reaches once,
+    over HBM bandwidth; 4 flops per (query, key, d) the mask keeps over
+    the bf16 tensor-core peak."""
+    n_keys = min(sk, sq) if causal else sk
+    n_bytes = elt * (2 * b * sq * h * d + 2 * b * n_keys * kv * d)
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    ops = 4 * b * h * d * pairs
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+def decode_bound(q, k, lens, n_splits):
+    """Least time (ms): q, the valid K/V prefix and the fp32 partials and
+    LSE once over HBM bandwidth; 4 flops per valid (row, position, d)
+    over the bf16 tensor-core peak."""
+    b, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    valid = int(lens.clamp(0, s).sum())
+    n_bytes = q.numel() * q.element_size() \
+        + 2 * valid * kv * d * k.element_size() \
+        + 4 * b * kv * n_splits * (h // kv) * (d + 1)
+    ops = 4 * valid * h * d
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+def attention_phase(build_s):
+    from repro_torch.kernels.decode_attention import (_pick_splits,
+                                                      decode_attention_cuda,
+                                                      ref_decode_splits)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     ref_attention)
+    from repro_torch.kernels.nvcc_lib import attention_library, library_path
+
+    attention_library()
+    log = library_path().with_suffix(".log").read_text()
+    print(json.dumps({"build": {"attention_library_s": build_s},
+                      "ptxas": [ln.strip() for ln in log.splitlines()
+                                if "registers" in ln or "spill" in ln]}),
+          flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    res = {n: {"max_abs_err": 0.0} for n in ATT_KERNELS}
+
+    def hold(name, case, got, want):
+        for a, w in zip(got, want):
+            ok, err = _close(a, w, *_tol(a.dtype))
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            check(ok, f"{name} differs from its plain version: {case} "
+                      f"(max abs err {err})")
+
+    B, H, D = LM_BATCH, 32, 80
+    # flash: the prefill shape, GQA, a ragged non-causal shape
+    flash_cases = [((B, LM_PROMPT, LM_MAX_SEQ, H, H, D), True),
+                   ((2, 512, 512, 32, 8, 128), True),
+                   ((1, 300, 333, 4, 4, 80), False)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, causal in flash_cases:
+            q, k, v = flash_case(gen, *shape, dtype)
+            sc = shape[-1] ** -0.5
+            got = flash_attention_cuda(q, k, v, causal=causal, scale=sc)
+            want = ref_attention(q, k, v, causal=causal, scale=sc)
+            torch.cuda.synchronize()
+            hold("flash_attention_cuda", f"{shape} causal={causal} {dtype}",
+                 [got], [want])
+            del q, k, v, got, want
+    # decode: the serving cache at the decode steps' kv_len, GQA over a
+    # partial cache, and kv_len = 17 of 2048 in four splits
+    ns_lm = _pick_splits(LM_MAX_SEQ, D)
+    dec_cases = [((B, LM_MAX_SEQ, H, H, D), LM_KV_LEN, ns_lm),
+                 ((2, 1024, 32, 8, 128), (700, 1024), 4),
+                 ((1, 2048, 2, 1, 64), (17,), 4)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for (b, s, h, kv, d), lens, ns in dec_cases:
+            q = _randn(gen, (b, h, d), dtype)
+            k = _randn(gen, (b, s, kv, d), dtype)
+            v = _randn(gen, (b, s, kv, d), dtype)
+            lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = decode_attention_cuda(q, k, v, lt, n_splits=ns)
+            want = ref_decode_splits(q, k, v, lt, n_splits=ns)
+            torch.cuda.synchronize()
+            hold("decode_attention_cuda", f"{(b, s, h, kv, d)} kv_len={lens} "
+                 f"n_splits={ns} {dtype}", got, want)
+
+    # times at the LM path's shapes, bf16: kernel, plain version, and the
+    # one PyTorch call for the same function (timed here only)
+    q, k, v = flash_case(gen, B, LM_PROMPT, LM_MAX_SEQ, H, H, D,
+                         torch.bfloat16)
+    sc = D ** -0.5
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fa = res["flash_attention_cuda"]
+    fa.update(flash_bound(B, LM_PROMPT, LM_MAX_SEQ, H, H, D, True, 2))
+    fa["ms"] = statistics.median(cuda_ms(lambda: flash_attention_cuda(
+        q, k, v, causal=True, scale=sc), TIMED_LAUNCHES))
+    fa["plain_ms"] = statistics.median(cuda_ms(lambda: ref_attention(
+        q, k, v, causal=True, scale=sc), TIMED_LAUNCHES))
+    fa["library_ms"] = statistics.median(cuda_ms(lambda: sdpa(
+        qt, kt, vt, is_causal=True, scale=sc), TIMED_LAUNCHES))
+    fa["shape"] = {"B": B, "H": H, "KV": H, "Sq": LM_PROMPT,
+                   "Sk": LM_MAX_SEQ, "D": D, "causal": True,
+                   "dtype": "bfloat16"}
+    lt = torch.tensor(LM_KV_LEN, dtype=torch.int32, device="cuda")
+    qd = _randn(gen, (B, H, D), torch.bfloat16)
+    mask = (torch.arange(LM_MAX_SEQ, device="cuda")[None] < lt[:, None]) \
+        [:, None, None, :]
+    da = res["decode_attention_cuda"]
+    da.update(decode_bound(qd, k, lt, ns_lm))
+    da["ms"] = statistics.median(cuda_ms(lambda: decode_attention_cuda(
+        qd, k, v, lt, n_splits=ns_lm), TIMED_LAUNCHES))
+    da["plain_ms"] = statistics.median(cuda_ms(lambda: ref_decode_splits(
+        qd, k, v, lt, n_splits=ns_lm), TIMED_LAUNCHES))
+    da["library_ms"] = statistics.median(cuda_ms(lambda: sdpa(
+        qd[:, :, None], kt, vt, attn_mask=mask, scale=sc), TIMED_LAUNCHES))
+    da["shape"] = {"B": B, "H": H, "KV": H, "S": LM_MAX_SEQ, "D": D,
+                   "kv_len": list(LM_KV_LEN), "n_splits": ns_lm,
+                   "dtype": "bfloat16"}
+    print(json.dumps({"attention_phase": "ok",
+                      **{n: {k: r[k] for k in ("ms", "plain_ms",
+                                                "library_ms", "bound_ms",
+                                                "max_abs_err")}
+                         for n, r in res.items()}}), flush=True)
+    return res
+
+
+# ------------------------------------------------------------ LM serving --
+
+def serve(cfg, params, prompts, n_steps, attn_impl, forced=None):
+    """``prefill`` then ``n_steps`` greedy ``decode_step``s; with
+    ``forced`` (B, n_steps) the steps are fed those tokens instead of their
+    own argmax. Returns the prefill logits, the first step's logits, the
+    argmax after the prefill and each step, and host times (ms)."""
+    from repro_torch.models import transformer as T
+
+    b, s = prompts.shape
+    caches = T.init_cache(cfg, b, LM_MAX_SEQ, device=prompts.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = T.prefill(cfg, params, prompts, caches,
+                               attn_impl=attn_impl)
+    tokens = [logits.argmax(-1)]
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out = {"prefill_logits": logits.float(), "prefill_ms": prefill_ms,
+           "step_ms": []}
+    for i in range(n_steps):
+        tok = (tokens[-1] if forced is None else forced[:, i])[:, None]
+        t0 = time.perf_counter()
+        logits, caches = T.decode_step(cfg, params, tok, caches, s + i,
+                                       attn_impl=attn_impl)
+        tokens.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["step_logits"] = logits.float()
+        check(bool(torch.isfinite(logits).all()),
+              f"{attn_impl}: non-finite logits at decode step {i}")
+    check(bool(torch.isfinite(out["prefill_logits"]).all()),
+          f"{attn_impl}: non-finite prefill logits")
+    out["tokens"] = torch.stack(tokens, dim=1)      # (B, n_steps + 1)
+    return out
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _trace_summary(prof, wall_s: float, n: int) -> dict:
+    """Per prefill or decode step (``n`` of them traced): host wall time,
+    kernel launches and device busy time (the kernels' durations summed:
+    one stream, so they do not overlap); the busy share of the wall time
+    (the profiler's host overhead is inside it, so this is a lower
+    bound), the attention kernels' share of the busy time, and the five
+    kernels that take the most device time."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: float(e.self_device_time_total)
+    busy = sum(map(dev_us, kernels)) / 1e3
+    attn = sum(dev_us(e) for e in kernels
+               if "flash_fwd_kernel" in e.key or "decode_kernel" in e.key)
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    return {"wall_ms": wall_s * 1e3 / n,
+            "kernel_launches": sum(e.count for e in kernels) / n,
+            "device_busy_ms": busy / n, "busy_share": busy / (wall_s * 1e3),
+            "attention_share_of_busy": attn / 1e3 / busy,
+            "top_kernels": [{"name": e.key[:80], "count": e.count / n,
+                             "device_ms": dev_us(e) / 1e3 / n}
+                            for e in top]}
+
+
+def trace_lm(cfg, params, prompts, n_steps):
+    """``torch.profiler`` over one prefill and ``n_steps`` decode steps
+    through the kernels: where the device time goes, and how much of the
+    wall time the device is busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    caches = T.init_cache(cfg, LM_BATCH, LM_MAX_SEQ)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, caches = T.prefill(cfg, params, prompts, caches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"prefill": _trace_summary(prof, wall, 1)}
+    tok = logits.argmax(-1, keepdim=True)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            logits, caches = T.decode_step(cfg, params, tok, caches,
+                                           LM_PROMPT + i)
+            tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["decode_step"] = _trace_summary(prof, wall, n_steps)
+    return out
+
+
+def lm_phase(wrappers):
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+
+    cfg = get(LM_ARCH).config
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    serve(cfg, params, prompts, 2, "auto")              # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    run = serve(cfg, params, prompts, LM_STEPS, "auto")
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    trace = trace_lm(cfg, params, prompts, LM_TRACED_STEPS)
+    check(launches["flash_attention_cuda"] == cfg.n_layers,
+          f"flash_attention_cuda launched {launches['flash_attention_cuda']}"
+          f" times in the prefill, expected {cfg.n_layers}")
+    check(launches["decode_attention_cuda"] == cfg.n_layers * LM_STEPS,
+          f"decode_attention_cuda launched "
+          f"{launches['decode_attention_cuda']} times in {LM_STEPS} steps, "
+          f"expected {cfg.n_layers * LM_STEPS}")
+    check(run["tokens"].shape == (LM_BATCH, LM_STEPS + 1)
+          and run["prefill_logits"].shape == (LM_BATCH, cfg.vocab_size),
+          "LM outputs have the wrong shape")
+
+    ref = serve(cfg, params, prompts, LM_STEPS, "ref",
+                forced=run["tokens"][:, :-1])
+    rel_prefill = _rel(run["prefill_logits"], ref["prefill_logits"])
+    rel_step = _rel(run["step_logits"], ref["step_logits"])
+    agree = float((ref["tokens"] == run["tokens"]).float().mean())
+    plain_ms = (ref["prefill_ms"], statistics.median(ref["step_ms"]))
+    check(rel_prefill < LM_BF16_BOUND and rel_step < LM_BF16_BOUND,
+          f"bf16 logits through the kernels differ from the plain path: "
+          f"prefill {rel_prefill}, first step {rel_step} "
+          f"(bound {LM_BF16_BOUND})")
+    del params, ref
+
+    cfg32 = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS,
+                                dtype="float32")
+    p32 = T.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0))
+    k32 = serve(cfg32, p32, prompts, 1, "auto")
+    r32 = serve(cfg32, p32, prompts, 1, "ref", forced=k32["tokens"][:, :-1])
+    rel32 = (_rel(k32["prefill_logits"], r32["prefill_logits"]),
+             _rel(k32["step_logits"], r32["step_logits"]))
+    check(max(rel32) < LM_F32_BOUND,
+          f"fp32 logits through the kernels differ from the plain path: "
+          f"prefill {rel32[0]}, first step {rel32[1]} "
+          f"(bound {LM_F32_BOUND})")
+    del p32
+
+    decode_s = sum(run["step_ms"]) / 1e3
+    row = {"arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_params": T.n_params(T.init_params(cfg, device="meta")),
+           "dtype": cfg.dtype, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "max_seq": LM_MAX_SEQ, "decode_steps": LM_STEPS,
+           "init_s": init_s, "prefill_ms": run["prefill_ms"],
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT
+           / (run["prefill_ms"] / 1e3),
+           "decode_ms_per_step_median": statistics.median(run["step_ms"]),
+           "decode_tokens_per_s": LM_BATCH * LM_STEPS / decode_s,
+           "plain_prefill_ms": plain_ms[0],
+           "plain_decode_ms_per_step_median": plain_ms[1],
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "rel_err_vs_plain_bf16": {"prefill": rel_prefill,
+                                     "first_step": rel_step},
+           "rel_err_vs_plain_fp32_2_layers": {"prefill": rel32[0],
+                                              "first_step": rel32[1]},
+           "greedy_token_agreement": agree}
+    print(json.dumps({"lm_serving": row}), flush=True)
+    print(json.dumps({"lm_trace": trace}), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.moscore import moscore_cuda, moscore_hoisted_cuda
+    from repro_torch.kernels.nvcc_lib import build
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = nvidia_smi("name,power.limit")
     print(json.dumps({"python": sys.version.split()[0],
@@ -329,36 +704,67 @@ def main() -> int:
                       "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}), flush=True)
-    res = kernel_phase(dev)
+    # the attention library builds (nvcc) while the moscore extension does
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        t0 = time.perf_counter()
+        lib = pool.submit(lambda: (build(), time.perf_counter() - t0)[1])
+        res = kernel_phase(dev)
+        build_s = lib.result()
 
     wrappers = {"moscore_cuda": moscore_cuda,
-                "moscore_hoisted_cuda": moscore_hoisted_cuda}
+                "moscore_hoisted_cuda": moscore_hoisted_cuda,
+                "flash_attention_cuda": flash_attention_cuda,
+                "decode_attention_cuda": decode_attention_cuda}
     for w in wrappers.values():
         w.launches = 0
     paper_phase()
     scale_phase(dev)
     launches = {n: w.launches for n, w in wrappers.items()}
-    for n, k in launches.items():
-        check(k > 0, f"{n} was not launched on the main path")
+    for n in KERNELS:
+        check(launches[n] > 0, f"{n} was not launched on the main path")
 
+    res.update(attention_phase(build_s))
+    lm_launches = lm_phase(wrappers)
+    for n in ATT_KERNELS:
+        launches[n] = lm_launches[n]
+        check(launches[n] > 0, f"{n} was not launched on the LM path")
+
+    sources = {"moscore_cuda": "src/repro_torch/kernels/moscore/csrc/"
+                               "moscore.cu",
+               "moscore_hoisted_cuda": "src/repro_torch/kernels/moscore/"
+                                       "csrc/moscore.cu",
+               "flash_attention_cuda": "src/repro_torch/kernels/"
+                                       "flash_attention/csrc/"
+                                       "flash_attention.cu",
+               "decode_attention_cuda": "src/repro_torch/kernels/"
+                                        "decode_attention/csrc/"
+                                        "decode_attention.cu"}
     replaces = {"moscore_cuda": "src/repro/kernels/moscore/moscore.py:28",
                 "moscore_hoisted_cuda":
-                    "src/repro/kernels/moscore/moscore.py:60"}
+                    "src/repro/kernels/moscore/moscore.py:60",
+                "flash_attention_cuda": "src/repro/kernels/flash_attention/"
+                                        "flash_attention.py:25",
+                "decode_attention_cuda": "src/repro/kernels/"
+                                         "decode_attention/"
+                                         "decode_attention.py:28"}
     kernels = []
     for n in wrappers:
         r = res[n]
-        kernels.append({
-            "name": n, "route": "cuda",
-            "source": "src/repro_torch/kernels/moscore/csrc/moscore.cu",
-            "replaces": replaces[n], "launches": launches[n],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-            "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
-            "serial_floor_ms": r["serial_floor_ms"],
-            "shape": {"P": PAIRS[-1], "G": 5, "W": W},
-            "us_per_window": r["us_per_window"],
-            "paper_us_per_window": r["paper_us_per_window"]})
+        row = {"name": n, "route": "cuda", "source": sources[n],
+               "replaces": replaces[n], "launches": launches[n],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"],
+               "library_ms": r.get("library_ms"),
+               "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"]}
+        if n in KERNELS:
+            row.update(serial_floor_ms=r["serial_floor_ms"],
+                       shape={"P": PAIRS[-1], "G": 5, "W": W},
+                       us_per_window=r["us_per_window"],
+                       paper_us_per_window=r["paper_us_per_window"])
+        else:
+            row["shape"] = r["shape"]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -147,3 +147,222 @@ def test_serving_plane_on_card_equals_cpu(cuda_device):
                               device="cpu").run(2048)
     for k in RECORDS:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# ------------------------------------------------- attention kernels, LM --
+# Each attention kernel against its plain PyTorch version on the card, at
+# tests/test_kernels.py::_tol's tolerances by the dtype of the output: both
+# compute in float32 from the same input values, so a float32 output
+# differs only in the order of the sums (1e-5), a bfloat16 one also in its
+# rounding (2e-2).
+
+ATT_DTYPES = {"float32": (torch.float32, torch.float32),
+              "bfloat16": (torch.bfloat16, torch.bfloat16),
+              "float32-q-bfloat16-kv": (torch.float32, torch.bfloat16)}
+
+
+def _att_tol(dtype):
+    return dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=2e-2)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+# (b, sq, sk, h, kv, d, causal): square, ragged edges, Sk > Sq (a prompt
+# against a longer cache), Sq > Sk, GQA with G = 4, D in {16, 64, 80, 128}
+FLASH_GRID = [
+    (1, 128, 128, 2, 2, 64, True),
+    (2, 100, 130, 4, 1, 80, True),
+    (1, 64, 256, 4, 4, 128, False),
+    (2, 257, 300, 8, 2, 80, True),
+    (1, 2048, 2560, 2, 2, 80, True),
+    (1, 70, 50, 2, 2, 16, True),
+    (2, 200, 333, 8, 2, 128, False),
+]
+
+
+@pytest.mark.parametrize("dtype", list(ATT_DTYPES))
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_GRID)
+def test_flash_kernel_equals_plain_version(b, sq, sk, h, kv, d, causal,
+                                           dtype, cuda_device):
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     ref_attention)
+
+    qdt, kvdt = ATT_DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(sq * sk + d)
+    q = _randn(gen, (b, h, sq, d), qdt, cuda_device).transpose(1, 2)
+    k = _randn(gen, (b, sk, kv, d), kvdt, cuda_device)
+    v = _randn(gen, (b, sk, kv, d), kvdt, cuda_device)
+    n0 = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, scale=d ** -0.5)
+    want = ref_attention(q, k, v, causal=causal, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == n0 + 1
+    assert got.dtype == qdt and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_att_tol(qdt))
+
+
+# (b, s, h, kv, d, kv_len, n_splits): the stablelm-3b decode shape, GQA
+# with G = 4 and D = 128 over a partial cache, kv_len = 17 of 2048 in four
+# splits (three wholly masked), and an empty row (kv_len = 0)
+DECODE_GRID = [
+    (4, 2560, 32, 32, 80, (2049, 2059, 2069, 2080), 1),
+    (2, 1024, 32, 8, 128, (700, 1024), 4),
+    (1, 2048, 2, 1, 64, (17,), 4),
+    (3, 256, 8, 4, 16, (0, 256, 129), 2),
+]
+
+
+@pytest.mark.parametrize("dtype", list(ATT_DTYPES))
+@pytest.mark.parametrize("b,s,h,kv,d,kv_len,n_splits", DECODE_GRID)
+def test_decode_kernel_equals_plain_version(b, s, h, kv, d, kv_len, n_splits,
+                                            dtype, cuda_device):
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_cuda, ref_decode_attention,
+        ref_decode_splits)
+
+    qdt, kvdt = ATT_DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q = _randn(gen, (b, h, d), qdt, cuda_device)
+    k = _randn(gen, (b, s, kv, d), kvdt, cuda_device)
+    v = _randn(gen, (b, s, kv, d), kvdt, cuda_device)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+    n0 = decode_attention_cuda.launches
+    o, lse = decode_attention_cuda(q, k, v, lens, n_splits=n_splits)
+    o_w, lse_w = ref_decode_splits(q, k, v, lens, n_splits=n_splits)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == n0 + 1
+    torch.testing.assert_close(o, o_w, **_att_tol(o.dtype))
+    torch.testing.assert_close(lse, lse_w, **_att_tol(lse.dtype))
+    out = decode_attention(q, k, v, lens, n_splits=n_splits)
+    rows = lens > 0                 # an empty row is NaN in the oracle
+    torch.testing.assert_close(
+        out[rows].float(),
+        ref_decode_attention(q, k, v, lens)[rows].float(), **_att_tol(qdt))
+    assert not out[~rows].any()
+
+
+def test_attention_wrappers_check_inputs(cuda_device):
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = _randn(gen, (1, 8, 4, 64), torch.float32, cuda_device)
+    k = _randn(gen, (1, 16, 2, 64), torch.float32, cuda_device)
+    bad = [
+        (q, k.cpu(), k),                                 # device
+        (q.half(), k, k),                                # dtype
+        (q, k, k.bfloat16()),                            # k, v differ
+        (q[..., :60], k[..., :60], k[..., :60]),         # D % 8
+        (q.transpose(1, 3), k, k),                       # D not unit stride
+        (q[:, :, :3], k, k),                             # H % KV
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            flash_attention_cuda(*args, causal=True, scale=0.125)
+    with pytest.raises(ValueError, match="not built"):   # bf16 q, fp32 k/v
+        flash_attention_cuda(q.bfloat16(), k, k, causal=True, scale=0.125)
+    big = _randn(gen, (1, 8, 2, 136), torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(big, big, big, causal=True, scale=0.1)
+
+    qd = _randn(gen, (2, 4, 64), torch.bfloat16, cuda_device)
+    kd = _randn(gen, (2, 64, 2, 64), torch.bfloat16, cuda_device)
+    lens = torch.tensor([10, 64], dtype=torch.int32, device=cuda_device)
+    flat = torch.empty(kd.numel() + 2, dtype=kd.dtype, device=cuda_device)
+    shifted = flat[2:].view(kd.shape)                    # 4-byte offset
+    bad = [
+        ((qd, kd, kd, lens.long()), 1),                  # kv_len dtype
+        ((qd, kd, kd, lens), 3),                         # splits
+        ((qd, shifted, shifted, lens), 1),               # alignment
+        ((_randn(gen, (2, 32, 64), torch.bfloat16, cuda_device), kd, kd,
+          lens), 1),                                     # G = 16 > 8
+        ((qd.transpose(0, 1).contiguous().transpose(0, 1), kd, kd,
+          lens), 1),                                     # q not contiguous
+    ]
+    for args, ns in bad:
+        with pytest.raises(ValueError):
+            decode_attention_cuda(*args, n_splits=ns)
+    with pytest.raises(ValueError, match="not built"):   # bf16 q, fp32 k/v
+        decode_attention_cuda(qd, kd.float(), kd.float(), lens, n_splits=1)
+
+
+def _lm_models():
+    import dataclasses
+
+    from repro_torch.common.configs import LMConfig
+    from repro_torch.configs import stablelm_3b
+
+    gqa = LMConfig(name="t", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                   d_ff=128, vocab_size=128, dtype="float32")
+    return {"stablelm-3b-reduced": stablelm_3b.REDUCED, "gqa": gqa,
+            "stablelm-3b-reduced-bf16": dataclasses.replace(
+                stablelm_3b.REDUCED, dtype="bfloat16")}
+
+
+@pytest.mark.parametrize("model", ["stablelm-3b-reduced", "gqa",
+                                   "stablelm-3b-reduced-bf16"])
+def test_reduced_lm_through_kernels_matches_cpu(model, cuda_device):
+    """``prefill`` and three greedy ``decode_step``s on the card go through
+    the kernels (one flash launch per layer for the prefill, one decode
+    launch per layer per step) and match the CPU's plain path: 1e-4
+    relative to the largest logit in float32 (cuBLAS and the kernels sum
+    in other orders than the CPU), 2e-2 in bfloat16."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import transformer as T
+
+    cfg = _lm_models()[model]
+    tol = 2e-2 if cfg.dtype == "bfloat16" else 1e-4
+    params = T.init_params(cfg, torch.Generator().manual_seed(1),
+                           device="cpu")
+    on_card = _to(params, cuda_device)
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 16)))
+    rel = lambda a, b: float((a.float().cpu() - b.float()).abs().max()
+                             / b.float().abs().max())
+    c_cpu = T.init_cache(cfg, 2, 32, device="cpu")
+    c_gpu = T.init_cache(cfg, 2, 32)
+    n0 = flash_attention_cuda.launches, decode_attention_cuda.launches
+    l_cpu, c_cpu = T.prefill(cfg, params, tok, c_cpu)
+    l_gpu, c_gpu = T.prefill(cfg, on_card, tok.to(cuda_device), c_gpu)
+    assert rel(l_gpu, l_cpu) < tol
+    for step in range(3):
+        nxt = l_cpu.argmax(-1, keepdim=True)
+        l_cpu, c_cpu = T.decode_step(cfg, params, nxt, c_cpu, 16 + step)
+        l_gpu, c_gpu = T.decode_step(cfg, on_card, nxt.to(cuda_device),
+                                     c_gpu, 16 + step)
+        assert rel(l_gpu, l_cpu) < tol, step
+    assert flash_attention_cuda.launches - n0[0] == cfg.n_layers
+    assert decode_attention_cuda.launches - n0[1] == 3 * cfg.n_layers
+    with pytest.raises(NotImplementedError, match="query offset"):
+        T.forward(cfg, on_card, tok[:, :2].to(cuda_device), caches=c_gpu,
+                  cache_pos=19)
+
+
+def test_forward_without_cache_through_flash_kernel(cuda_device):
+    """The no-cache forward (causal, as training and scoring run it) goes
+    through the flash kernel, one launch per layer, and matches the CPU's
+    plain path within 1e-4 of the largest logit (float32)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import transformer as T
+
+    cfg = _lm_models()["gqa"]
+    params = T.init_params(cfg, torch.Generator().manual_seed(3),
+                           device="cpu")
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 24)))
+    want, _ = T.forward(cfg, params, tok)
+    n0 = flash_attention_cuda.launches
+    got, _ = T.forward(cfg, _to(params, cuda_device), tok.to(cuda_device))
+    assert flash_attention_cuda.launches - n0 == cfg.n_layers
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert float(err) < 1e-4

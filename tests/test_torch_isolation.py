@@ -51,6 +51,10 @@ def test_importing_port_leaves_jax_out():
     code = ("import json, sys\n"
             "import repro_torch, repro_torch.core, repro_torch.serving\n"
             "import repro_torch.kernels.moscore\n"
+            "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.common\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.decode_attention\n"
             "print(json.dumps(sorted(m for m in sys.modules\n"
             "    if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
