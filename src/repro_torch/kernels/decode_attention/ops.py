@@ -1,14 +1,20 @@
 """Public decode attention (port of
-``repro.kernels.decode_attention.ops``): the split-count heuristic, the
-split-K kernel and the fp32 LSE combine over splits, which stays plain
-PyTorch after the kernel as JAX kept it outside the Pallas kernel."""
+``repro.kernels.decode_attention.ops``).
+
+On CUDA tensors one launch gives the output: the fused kernel splits the
+valid prefix ``card_splits`` ways (or ``n_splits``) and merges the splits
+inside the launch. On CPU tensors it is the plain path of the JAX
+package: ``_pick_splits`` (the TPU's heuristic, copied), the split-K
+partials and the fp32 LSE combine over splits in plain PyTorch."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels.decode_attention.decode_attention import (
-    decode_attention_cuda)
+    MAX_FUSED_SPLITS, decode_attention_cuda, decode_attention_fused)
 
 
 def _pick_splits(s: int, d: int, target_block_bytes: int = 4 << 20) -> int:
@@ -19,15 +25,43 @@ def _pick_splits(s: int, d: int, target_block_bytes: int = 4 << 20) -> int:
     return n
 
 
+# the fewest cache positions a split of the fused kernel is given
+MIN_SPLIT_POSITIONS = 256
+
+
+def card_splits(bkv: int, s: int, n_sm: int) -> int:
+    """Splits of the fused kernel on a card of ``n_sm`` SMs: as many as
+    keep the ``bkv`` (batch x KV head) rows within one 8-warp CTA per SM,
+    at least one, at most one cluster (8), and no fewer than
+    ``MIN_SPLIT_POSITIONS`` cache positions per split. 1 at the
+    stablelm-3b decode shape (bkv = 128, 132 SMs): there more splits
+    measured slower (PERF.md)."""
+    return max(1, min(MAX_FUSED_SPLITS, n_sm // max(bkv, 1),
+                      s // MIN_SPLIT_POSITIONS))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def decode_attention(q, k, v, kv_len=None, *, n_splits: int = 0):
-    """q: (B, H, D); k/v: (B, S, KV, D); kv_len: (B,) valid length or None.
-    Split-K partials from the kernel (its plain version on CPU tensors),
-    fp32 LSE combine here. Returns (B, H, D) in q.dtype."""
+    """q: (B, H, D); k/v: (B, S, KV, D); kv_len: (B,) int32 valid length,
+    one int for every row, or None (the whole cache). Returns (B, H, D) in
+    q.dtype; a row with kv_len = 0 gives zeros. ``n_splits = 0`` picks the
+    split count: ``card_splits`` on CUDA, ``_pick_splits`` on the CPU."""
     b, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     g = h // kv
     if kv_len is None:
-        kv_len = torch.full((b,), s, dtype=torch.int32, device=q.device)
+        kv_len = s
+    if q.device.type == "cuda":
+        ns = n_splits or card_splits(b * kv, s, _sm_count(q.device.index))
+        if not isinstance(kv_len, int):
+            kv_len = kv_len.to(torch.int32)
+        return decode_attention_fused(q, k, v, kv_len, n_splits=ns)
+    if isinstance(kv_len, int):
+        kv_len = torch.full((b,), kv_len, dtype=torch.int32, device=q.device)
     ns = n_splits or _pick_splits(s, d)
     o_p, lse_p = decode_attention_cuda(q, k, v, kv_len.to(torch.int32),
                                        n_splits=ns)

@@ -57,3 +57,16 @@ def ref_decode_splits(q, k, v, kv_len, *, n_splits: int):
         / torch.clamp_min(l, 1e-30)[..., None]
     lse = torch.where(l > 0, torch.log(l) + m_safe, NEG_INF)
     return o, lse[..., None]
+
+
+def ref_decode_fused(q, k, v, kv_len):
+    """What the fused kernel computes: decode attention of q (B, H, D)
+    against k/v (B, S, KV, D) masked by kv_len ((B,) int, or one int for
+    every row), in q.dtype, with zeros for a row that has no valid
+    position. Its splits merge to the one-split result, so this is
+    ``ref_decode_splits`` with one split."""
+    b, h, d = q.shape
+    if isinstance(kv_len, int):
+        kv_len = torch.full((b,), kv_len, dtype=torch.int32, device=q.device)
+    o, _ = ref_decode_splits(q, k, v, kv_len, n_splits=1)
+    return o.reshape(b, h, d).to(q.dtype)

@@ -1,17 +1,18 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface.
+// Flash attention forward on the fp32 SIMT pipes for Hopper (sm_90a), for a
+// float32 q, plain C interface.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
-// ::_fa_kernel: block-tiled online-softmax attention with the running max,
-// sum and accumulator in fp32, causal tiles above the diagonal skipped, the
-// -1e30 sentinel for masked scores, and the output written in q's dtype.
+// ::_fa_kernel for the pairs with a float32 q: float32 K/V, or a bfloat16
+// cache.  Block-tiled online-softmax attention with the running max, sum
+// and accumulator in fp32, causal tiles above the diagonal skipped, the
+// -1e30 sentinel for masked scores, and the output written in fp32.  The
+// bf16 pair runs on the tensor cores (flash_attention_mma.cu); fp32 stays
+// here because TF32 products could not hold the fp32 path's 1e-5.
 //
-// What bounds it on this card: at the LM prefill shape (BH = 128,
-// Sq = 2048, Sk = 2560, D = 80, bf16, causal) the work is ~86 GFLOP
-// against ~170 MB of Q, K, V and O, so the kernel is bound by operations
-// (0.087 ms at the 989 TFLOP/s bf16 tensor-core peak) rather than bytes
-// (0.05 ms at 3.35 TB/s).  This first version does its products on the
-// fp32 SIMT pipes, not the tensor cores, so it runs far above that bound;
-// mma/wgmma, TMA and pipelining are left to a later change.
+// What bounds it on this card: operations.  At the LM prefill shape
+// (BH = 128, Sq = 2048, Sk = 2560, D = 80, causal) the mask keeps ~86 GFLOP
+// against ~340 MB of fp32 Q, K, V and O: 1.3 ms at the 67 TFLOP/s fp32
+// peak outside the tensor cores, 0.1 ms at 3.35 TB/s.
 //
 // What the design does about it:
 //  * one CTA of 256 threads per (64-query tile, batch x head); K/V tiles of
@@ -52,9 +53,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // element strides of q/o (b, s, h) and k/v (b, s, kv head); d is unit stride
 struct Strides {
@@ -223,26 +221,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// q, o: (B, Sq, H, D); k, v: (B, Sk, KV, D), any strides with unit stride
-// along D (strides[12] = q b/s/h, k b/s/h, v b/s/h, o b/s/h, in elements).
-// q_bf16 / kv_bf16 select bfloat16 (1) or float32 (0); o has q's dtype.
-// A bfloat16 q against float32 k/v is not built.
+// q, o: (B, Sq, H, D) float32; k, v: (B, Sk, KV, D), any strides with unit
+// stride along D (strides[12] = q b/s/h, k b/s/h, v b/s/h, o b/s/h, in
+// elements).  kv_bf16 selects a bfloat16 (1) or float32 (0) K/V.  A
+// bfloat16 q is not built here: fa_forward_mma takes the bf16 pair.
 // Returns the CUDA error of the launch (0 on success).
 int fa_forward(const void* q, const void* k, const void* v, void* o,
-               int q_bf16, int kv_bf16, int B, int H, int KV, int Sq, int Sk,
+               int kv_bf16, int B, int H, int KV, int Sq, int Sk,
                int D, const long long* strides, int causal, float scale,
                void* stream) {
   if (D <= 0 || D > DMAX || D % 8 != 0 || KV <= 0 || H % KV != 0 ||
-      (q_bf16 && !kv_bf16))
+      Sk <= 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
   Strides st{strides[0], strides[1], strides[2], strides[3],
              strides[4], strides[5], strides[6], strides[7],
              strides[8], strides[9], strides[10], strides[11]};
   auto s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && kv_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk,
-                                                D, st, causal, scale, s);
   if (kv_bf16)
     return launch<float, __nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, D, st,
                                         causal, scale, s);

@@ -1,13 +1,17 @@
-"""Wrappers of the flash attention CUDA kernel
-(``csrc/flash_attention.cu``, port of ``_fa_kernel``).
+"""Wrappers of the flash attention CUDA kernels (port of ``_fa_kernel``):
+``csrc/flash_attention_mma.cu`` for a bf16 q against bf16 K/V (tensor
+cores), ``csrc/flash_attention.cu`` for a float32 q against float32 or
+bf16 K/V (fp32 SIMT pipes, where the 1e-5 of the fp32 path holds).
 
 ``flash_attention_cuda`` takes the GQA layout, q (B, Sq, H, D) and k/v
 (B, Sk, KV, D), with any strides that keep D contiguous: query head h
 reads KV head h // (H // KV) by index, so no repeated or transposed copy
 of K/V is made. ``flash_attention_bhsd`` keeps the JAX wrapper's
 (BH, S, D) layout. On CPU tensors both run the plain PyTorch version
-(``ref_attention``); on CUDA tensors they launch the kernel or raise.
-Each launch adds one to ``flash_attention_cuda.launches``."""
+(``ref_attention``); on CUDA tensors they launch the kernel that the
+dtypes select (``kernel_for``) or raise, never the other one. Each launch
+adds one to ``flash_attention_cuda.launches`` and to the launched
+kernel's entry of ``flash_attention_cuda.kernel_launches``."""
 
 from __future__ import annotations
 
@@ -17,9 +21,16 @@ from repro_torch.kernels.flash_attention.ref import ref_attention
 from repro_torch.kernels.nvcc_lib import (attention_library, check_launch,
                                           strides_arg)
 
-#: the kernel keeps up to 128 head-dim columns per row; D % 8 == 0
+#: the kernels keep up to 128 head-dim columns per row; D % 8 == 0
 MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the tensor-core kernel (bf16 q and K/V) and the SIMT one (float32 q)
+KERNELS = ("flash_fwd_mma", "flash_fwd_simt")
+
+
+def kernel_for(q_dtype: torch.dtype) -> str:
+    """The CUDA kernel that a query of this dtype launches."""
+    return "flash_fwd_mma" if q_dtype == torch.bfloat16 else "flash_fwd_simt"
 
 
 def _check(q, k, v) -> None:
@@ -52,6 +63,12 @@ def _check(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along the head dim")
+        # the tensor-core kernel copies rows in 16-byte pieces
+        if q.dtype == torch.bfloat16 and (any(x % 8 for x in t.stride()[:3])
+                                          or t.data_ptr() % 16):
+            raise ValueError(f"{name}: the bf16 kernel takes strides in "
+                             f"multiples of 8 elements and a 16-byte "
+                             f"aligned start")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
@@ -66,17 +83,23 @@ def flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     st = strides_arg(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                      *o.stride()[:3])
-    err = attention_library().fa_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-        b, h, kv, sq, sk, d, st, int(causal), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch("flash_attention_cuda", err)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    rest = (b, h, kv, sq, sk, d, st, int(causal), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernel = kernel_for(q.dtype)
+    lib = attention_library()
+    if kernel == "flash_fwd_mma":
+        err = lib.fa_forward_mma(*ptrs, *rest)
+    else:
+        err = lib.fa_forward(*ptrs, int(k.dtype == torch.bfloat16), *rest)
+    check_launch(f"flash_attention_cuda ({kernel})", err)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.kernel_launches[kernel] += 1
     return o
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.kernel_launches = dict.fromkeys(KERNELS, 0)
 
 
 def flash_attention_bhsd(q, k, v, *, causal: bool, scale: float):

@@ -1,6 +1,7 @@
 """Build and load the attention kernels' shared library.
 
-The CUDA sources of ``flash_attention/csrc`` and ``decode_attention/csrc``
+The CUDA sources of ``flash_attention/csrc`` (the tensor-core kernel for
+bf16 and the SIMT kernel for a float32 q) and ``decode_attention/csrc``
 expose a plain C interface. At first use they are compiled for sm_90a by
 ``nvcc``, one process per source, all started together, linked into one
 shared library under ``build/torch_ext/`` at the root of the checkout, and
@@ -18,7 +19,8 @@ import subprocess
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
-SOURCES = (_KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+SOURCES = (_KERNELS / "flash_attention" / "csrc" / "flash_attention_mma.cu",
+           _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
            _KERNELS / "decode_attention" / "csrc" / "decode_attention.cu")
 #: where the library is built: ``build/torch_ext`` in the checkout
 BUILD_DIR = _KERNELS.parents[2] / "build" / "torch_ext"
@@ -32,10 +34,14 @@ _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 #: (name, restype, argtypes) of every C entry point
 _SIGNATURES = (
-    ("fa_forward", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    ("fa_forward_mma", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _STRIDES, _I, ctypes.c_float, _P)),
+    ("fa_forward", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _STRIDES, _I, ctypes.c_float, _P)),
     ("dec_forward", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _STRIDES, ctypes.c_float, _P)),
+    ("dec_forward_fused", _I, (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _STRIDES, ctypes.c_float, _P)),
 )
 
 

@@ -154,9 +154,9 @@ def attention_block(x, w, cfg, *, positions, causal=True, cache=None,
     With a cache, on CUDA tensors and ``attn_impl="auto"``: a prompt
     written from position 0 (s > 1, ``cache_pos == 0``) goes to the flash
     kernel, causal over the whole cache, whose unfilled tail the causal
-    mask hides; one token (s == 1) goes to the decode kernel with
-    ``kv_len = cache_pos + 1``; anything else raises. Without a cache it
-    goes to the flash kernel with ``causal``."""
+    mask hides; one token (s == 1) goes to the fused decode kernel with
+    ``kv_len = cache_pos + 1``, one int for every row; anything else
+    raises. Without a cache it goes to the flash kernel with ``causal``."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     b, s, d = x.shape
@@ -187,9 +187,7 @@ def attention_block(x, w, cfg, *, positions, causal=True, cache=None,
             else:
                 o = mha(q, ck, cv, causal=True, q_offset=pos)
         elif s == 1:
-            lens = torch.full((b,), pos + 1, dtype=torch.int32,
-                              device=x.device)
-            o = decode_attention(q[:, 0], ck, cv, lens)[:, None]
+            o = decode_attention(q[:, 0], ck, cv, pos + 1)[:, None]
         elif pos == 0:
             o = flash_attention(q, ck, cv, causal=True)
         else:

@@ -23,10 +23,13 @@ from repro.kernels.decode_attention.ops import _pick_splits as jax_pick
 from repro.kernels.flash_attention import ref_attention as jax_ref_attention
 from repro.models.layers import mha as jax_mha
 from repro_torch.kernels.decode_attention import (_pick_splits,
+                                                  card_splits,
                                                   decode_attention,
                                                   decode_attention_cuda,
+                                                  decode_attention_fused,
                                                   decode_attention_splits,
                                                   ref_decode_attention,
+                                                  ref_decode_fused,
                                                   ref_decode_splits)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bhsd,
@@ -190,3 +193,50 @@ def test_pick_splits_matches_jax():
         for d in (16, 64, 80, 128, 256):
             assert _pick_splits(s, d) == jax_pick(s, d), (s, d)
     assert _pick_splits(2560, 80) == 1      # the stablelm-3b serving cache
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,s,h,kv,d,kv_len,n_splits", DECODE_CASES)
+def test_decode_fused_plain_version_matches_jax(b, s, h, kv, d, kv_len,
+                                                n_splits, dtype):
+    """What the fused kernel computes (its plain version on CPU tensors,
+    ``ref_decode_fused``) is the Pallas wrapper's combined output, for a
+    (B,) kv_len and for one int kv_len; ``decode_attention`` takes an int
+    kv_len on the CPU too."""
+    (qj, kj, vj, lj), (qt, kt, vt, lt) = _decode_inputs(b, s, h, kv, d,
+                                                        kv_len, dtype)
+    want = _np(jax_decode(qj, kj, vj, lj, n_splits=n_splits, interpret=True))
+    n0 = decode_attention_fused.launches
+    lens = torch.full((b,), s, dtype=torch.int32) if lt is None else lt
+    got = decode_attention_fused(qt, kt, vt, lens, n_splits=n_splits or 1)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    np.testing.assert_allclose(_np(got), want, **_tol(dtype))
+    np.testing.assert_allclose(_np(ref_decode_fused(qt, kt, vt, lens)),
+                               want, **_tol(dtype))
+    if kv_len is None or isinstance(kv_len, int):
+        one = s if kv_len is None else kv_len
+        np.testing.assert_allclose(_np(ref_decode_fused(qt, kt, vt, one)),
+                                   want, **_tol(dtype))
+        np.testing.assert_allclose(
+            _np(decode_attention(qt, kt, vt, one, n_splits=n_splits)),
+            want, **_tol(dtype))
+    assert decode_attention_fused.launches == n0     # CPU: no launch
+
+
+def test_card_splits():
+    """The fused kernel's split count: as many as keep the (batch x KV
+    head) rows within one 8-warp CTA per SM, at most one cluster of 8, at
+    least 256 positions a split."""
+    assert card_splits(128, 2560, 132) == 1      # stablelm-3b decode, H100
+    assert card_splits(32, 2560, 132) == 4
+    assert card_splits(4, 32_768, 132) == 8      # capped at one cluster
+    assert card_splits(4, 600, 132) == 2         # >= 256 positions a split
+    assert card_splits(4, 100, 132) == 1
+    assert card_splits(132, 4096, 132) == 1
+    assert card_splits(1000, 4096, 132) == 1
+    assert card_splits(0, 4096, 132) == 8
+    for bkv in range(1, 300):
+        ns = card_splits(bkv, 1 << 20, 132)
+        assert 1 <= ns <= 8
+        assert bkv * ns <= 132 or ns == 1       # one CTA per SM at most
+        assert ns == 8 or bkv * (ns + 1) > 132   # and no fewer than that
