@@ -7,16 +7,22 @@ Phases, each of which fails the run (exit code 1) on any disagreement:
 
 1. Environment: Python, torch and CUDA versions, and the card's name and
    power limit from ``nvidia-smi``.
-2. Kernels: builds the moscore CUDA extension from ``src/`` and holds
-   ``moscore_cuda`` and ``moscore_hoisted_cuda`` against their plain
-   PyTorch versions on the card: P = 5 (paper fleet), 200 and 1024
-   (synthetic fleets from a seeded ``torch.Generator``), G = 5, W = 4096,
-   (delta, gamma) in {(20, 0.5), (10, 0.25)}, random integer queues, a
-   fleet of duplicated pairs (ties), health-masked windows, and the
-   largest P the wrappers accept (W = 64). Choices and final queues must
-   be equal. Times each kernel per window at W = 4096 and at the paper
-   deployment's shape (P = 5, W = 64), and the plain versions at
-   P = 1024.
+2. Kernels: builds the moscore CUDA extension from ``src/`` (and, beside
+   it, compiles ``moscore.cu`` alone with ``-Xptxas -v`` for its
+   registers, spills and shared memory) and holds ``moscore_cuda`` and
+   ``moscore_hoisted_cuda`` against their plain PyTorch versions on the
+   card: P = 5 (paper fleet), 200 and 1024 (synthetic fleets from a
+   seeded ``torch.Generator``), G = 5, W = 4096, (delta, gamma) in
+   {(20, 0.5), (10, 0.25)}, random integer queues, a fleet of duplicated
+   pairs (ties), health-masked windows, the P where the hoisted kernel's
+   warp layout changes, and the largest P the wrappers accept (W = 64).
+   Choices and final queues must be equal. Times each kernel per window
+   at W = 4096 and at the paper deployment's shape (P = 5, W = 64) by
+   CUDA-graph replay (``ms``; a per-call event pair, ``event_ms``, also
+   holds the host's launch), the hoisted kernel in every warp layout it
+   is built for at P = 5, 200, 384, 640, 1024, 1536 and 1920, and the
+   plain versions at P = 1024 (event pair: they are thousands of launches
+   each).
 3. Paper deployment: ``ServingPlane.build(Scenario(n_users=15),
    window=64).run(2048)`` on the card through the hoisted kernel
    (``auto``) and through the unhoisted one (``cuda``); both must give the
@@ -28,15 +34,16 @@ Phases, each of which fails the run (exit code 1) on any disagreement:
 5. Attention kernels: builds the attention library (``nvcc``, started
    in the background before phase 2, one process per source; ptxas's
    registers, spills and shared memory for every kernel are printed) and
-   holds each kernel against its plain PyTorch version: the tensor-core
-   flash kernel (bf16) and the SIMT one (a float32 q against float32 or
-   bf16 K/V) at the LM prefill shape (B = 4, H = 32, Sq = 2048, Sk = 2560,
-   D = 80, causal), GQA (G = 4, D = 128), ragged non-causal, and D = 72,
-   8, 40 with Sq > Sk; the decode partials at the LM decode shape (kv_len
-   2049..2080, one split), GQA over a partial cache and wholly masked
-   splits; the fused decode at the card's split count and 8, GQA,
-   kv_len = 0 and kv_len inside the first split, with kv_len a tensor and
-   one int; bfloat16 at rtol 2e-2 and atol 5e-3, float32 at 1e-5 (the
+   holds each kernel against its plain PyTorch version: the bf16
+   tensor-core flash kernel and the split-tf32 one (a float32 q against
+   float32 or bf16 K/V) at the LM prefill shape (B = 4, H = 32, Sq = 2048,
+   Sk = 2560, D = 80, causal), GQA (G = 4, D = 128), ragged non-causal,
+   D = 72, 8, 40 with Sq > Sk, and prompt chunks at a query offset into a
+   longer cache (D = 8, 72, 80, 128, GQA); the decode partials at the LM
+   decode shape (kv_len 2049..2080, one split), GQA over a partial cache
+   and wholly masked splits; the fused decode at the card's split count
+   and 8, GQA, kv_len = 0 and kv_len inside the first split, with kv_len a
+   tensor and one int; bfloat16 at rtol 2e-2 and atol 5e-3, float32 at 1e-5 (the
    least atol each kernel needed is printed). Times each at the LM
    shapes beside its plain version and one PyTorch call for the same
    function (``scaled_dot_product_attention``; timed only): device time
@@ -50,10 +57,14 @@ Phases, each of which fails the run (exit code 1) on any disagreement:
    launches and 32 x 32 fused decode launches, and no other attention
    kernel. The same prompts through ``attn_impl="ref"`` on the card, fed
    the kernel path's tokens: the prefill logits and the first decode
-   step's must agree within 3e-2 of the largest logit; the same check in
-   float32 at full width with the depth cut to 2 layers (a float32 q
-   against the bf16 cache: 2 SIMT flash and 2 fused decode launches),
-   within 2e-5. Then one of the prompts alone through the bf16 path:
+   step's must agree within 3e-2 of the largest logit. The same prompts
+   prefilled in two chunks of 1024 through ``forward(..., cache_pos=)``
+   (2 x 32 tensor-core flash launches, the second at a query offset of
+   1024): the last chunk's last-token logits within 3e-2 of the plain
+   path's prefill. The same check in float32 at full width with the depth
+   cut to 2 layers (a float32 q against the bf16 cache: 2 split-tf32 flash
+   and 2 fused decode launches), within 2e-5. Then one of the prompts
+   alone through the bf16 path:
    B·KV = 32, so the card's split count is above 1 and the fused decode
    merges its splits in a cluster (32 flash and 32 x 32 fused decode
    launches; its logits within 3e-2 of the plain path's).
@@ -62,10 +73,11 @@ Phases, each of which fails the run (exit code 1) on any disagreement:
    ``torch.profiler``: kernel launches, device busy time and share, and
    the attention kernels' share of it.
 
-Phases 3 and 4 are the moscore main path and phase 6's bf16, one-prompt
-and fp32 runs the LM main path: the kernels' launch counts are set to zero before
-each and read after, and a kernel of the path launched no time there, or
-another number of times than the layers ask, fails the run. The script
+Phases 3 and 4 are the moscore main path and phase 6's bf16, two-chunk,
+one-prompt and fp32 runs the LM main path: the kernels' launch counts are
+set to zero before each and read after, and a kernel of the path
+launched no time there, or another number of times than the layers ask,
+fails the run. The script
 prints one JSON line of kernel results, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result."""
@@ -90,10 +102,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet; see PERF.md): HBM bytes/s, dense
-# float32 outside the tensor cores, dense bf16 on the tensor cores
+# float32 outside the tensor cores, dense bf16 and tf32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 494.7e12
 # dependent float32 issue latency assumed by the serial floor (cycles)
 DEP_CYCLES = 4
 
@@ -116,10 +129,17 @@ LM_KV_LEN = (2049, 2059, 2069, 2080)      # decode check: kv_len per row
 # errors an H100 has shown (PERF.md)
 LM_BF16_BOUND, LM_F32_BOUND, LM_F32_LAYERS = 3e-2, 2e-5, 2
 LM_TRACED_STEPS = 8
-# one row per attention CUDA kernel: the tensor-core flash kernel (bf16),
-# the SIMT one (a float32 q), the decode partials and the fused decode
-ATT_KERNELS = ("flash_fwd_mma", "flash_fwd_simt", "decode_splits",
+# one row per attention CUDA kernel: the bf16 tensor-core flash kernel, the
+# split-tf32 one (a float32 q), the decode partials and the fused decode
+ATT_KERNELS = ("flash_fwd_mma", "flash_fwd_3xtf32", "decode_splits",
                "decode_fused")
+# the P where the hoisted moscore kernel is timed in every layout (pairs
+# per thread; warps follow): PAIRS, and P at the end or inside each range
+# of the default layout's 1, 2 and 4 pairs per thread
+HOISTED_LAYOUT_PAIRS = (5, 200, 384, 640, 1024, 1536, 1920)
+# the P where the hoisted kernel's warp layout changes
+LAYOUT_EDGES = (1, 31, 32, 33, 255, 256, 257, 384, 385, 768, 769, 2048,
+                2049)
 # each row's wrapper, source and TPU kernel (file:line of its pallas body)
 ROWS = {
     "moscore_cuda": ("moscore_cuda", "moscore/csrc/moscore.cu",
@@ -131,10 +151,10 @@ ROWS = {
                       "flash_attention/csrc/flash_attention_mma.cu",
                       "src/repro/kernels/flash_attention/"
                       "flash_attention.py:25"),
-    "flash_fwd_simt": ("flash_attention_cuda",
-                       "flash_attention/csrc/flash_attention.cu",
-                       "src/repro/kernels/flash_attention/"
-                       "flash_attention.py:25"),
+    "flash_fwd_3xtf32": ("flash_attention_cuda",
+                         "flash_attention/csrc/flash_attention_3xtf32.cu",
+                         "src/repro/kernels/flash_attention/"
+                         "flash_attention.py:25"),
     "decode_splits": ("decode_attention_cuda",
                       "decode_attention/csrc/decode_attention.cu",
                       "src/repro/kernels/decode_attention/"
@@ -192,7 +212,7 @@ def launch_counts() -> dict:
     mo, moh, fa, dec, fused = _wrappers()
     return {"moscore_cuda": mo.launches, "moscore_hoisted_cuda": moh.launches,
             "flash_fwd_mma": fa.kernel_launches["flash_fwd_mma"],
-            "flash_fwd_simt": fa.kernel_launches["flash_fwd_simt"],
+            "flash_fwd_3xtf32": fa.kernel_launches["flash_fwd_3xtf32"],
             "decode_splits": dec.launches, "decode_fused": fused.launches}
 
 
@@ -278,6 +298,54 @@ def bound(name, x):
                 bytes_ms=bytes_ms, ops_ms=ops_ms, serial_floor_ms=serial_ms)
 
 
+def hoisted_layouts(x, gamma) -> dict:
+    """µs per window of the hoisted kernel in every layout it is built for
+    (``"KxW"``: K pairs per thread, W warps), each first held against the
+    plain version. Direct extension calls: they count no launch."""
+    from repro_torch.core.policies import mo_scan_hoisted
+    from repro_torch.kernels.moscore.moscore import (
+        HOISTED_PAIRS_PER_THREAD, extension, hoisted_layout)
+
+    P = x["Tt"].shape[1]
+    want = mo_scan_hoisted(x["Tt"], x["Ent"], x["Ft"], x["gs"], x["q0"],
+                           gamma=gamma)
+    out = {}
+    for k in HOISTED_PAIRS_PER_THREAD:
+        try:
+            k, warps = hoisted_layout(P, k)
+        except ValueError:          # more warps than a CTA takes
+            continue
+        ch, qf = torch.empty_like(x["gs"]), torch.empty_like(x["q0"])
+        call = lambda: extension().moscore_hoisted( 
+            x["Tt"], x["Ent"], x["Ft"], x["gs"], x["q0"], ch, qf, gamma,
+            1.0 - gamma, k, warps)
+        call()
+        torch.cuda.synchronize()
+        check(torch.equal(ch, want[0]) and torch.equal(qf, want[1]),
+              f"moscore_hoisted_kernel at P={P} in {k} pairs per thread x "
+              f"{warps} warps differs from the plain version")
+        out[f"{k}x{warps}"] = graph_ms(call, TIMED_LAUNCHES) * 1e3
+    return out
+
+
+def moscore_ptxas() -> list[dict]:
+    """Registers, spills and shared memory of the moscore kernels:
+    ``moscore.cu`` compiled alone with the extension's flags and
+    ``-Xptxas -v`` (the extension's own build keeps ptxas quiet)."""
+    from repro_torch.kernels.moscore.moscore import _CSRC, BUILD_DIR, CUDA_FLAGS
+    from repro_torch.kernels.nvcc_lib import _nvcc
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = BUILD_DIR / "moscore_ptxas.o"
+    out = subprocess.run([_nvcc(), *CUDA_FLAGS, "-Xptxas", "-v", "-c",
+                          str(_CSRC / "moscore.cu"), "-o", str(obj)],
+                         capture_output=True, text=True, timeout=900)
+    obj.unlink(missing_ok=True)
+    check(out.returncode == 0, f"moscore.cu does not compile alone:\n"
+                               f"{out.stderr[-4000:]}")
+    return ptxas_report(out.stdout + out.stderr)
+
+
 def kernel_phase(dev):
     from repro_torch.core.profiles import (ProfileTable, paper_fleet,
                                            synthetic_fleet)
@@ -287,7 +355,9 @@ def kernel_phase(dev):
     extension()
     print(f"build: moscore extension {time.perf_counter() - t0:.1f} s",
           flush=True)
-    res = {n: {"us_per_window": {}, "max_abs_err": 0.0} for n in KERNELS}
+    res = {n: {"us_per_window": {}, "event_us_per_window": {},
+               "max_abs_err": 0.0} for n in KERNELS}
+    layouts = {}
 
     def hold(case, calls):
         for n, (kernel, plain) in calls.items():
@@ -310,26 +380,41 @@ def kernel_phase(dev):
             hold(f"P={P} W={W} delta={delta} gamma={gamma}", calls)
             if i:
                 continue
-            # timed at the serving defaults, delta=20, gamma=0.5
+            # timed at the serving defaults, delta=20, gamma=0.5: device
+            # time by graph replay, and the per-call event pair
             for n, (kernel, plain) in calls.items():
-                ms = statistics.median(cuda_ms(kernel, TIMED_LAUNCHES))
+                ms = graph_ms(kernel, TIMED_LAUNCHES)
+                ev = statistics.median(cuda_ms(kernel, TIMED_LAUNCHES))
                 res[n]["us_per_window"][str(P)] = ms * 1e3
+                res[n]["event_us_per_window"][str(P)] = ev * 1e3
                 if P == PAIRS[-1]:
-                    res[n].update(bound(n, x), ms=ms, plain_ms=statistics
-                                  .median(cuda_ms(plain, 3)))
+                    res[n].update(bound(n, x), ms=ms, event_ms=ev,
+                                  plain_ms=statistics.median(
+                                      cuda_ms(plain, 3)))
+            if P in HOISTED_LAYOUT_PAIRS:
+                layouts[str(P)] = hoisted_layouts(x, gamma)
+    for P in HOISTED_LAYOUT_PAIRS:
+        if P not in fleets:
+            x = window_inputs(synthetic_fleet(gen, P), gen, 20.0)
+            layouts[str(P)] = hoisted_layouts(x, 0.5)
 
     # the paper deployment's shape: the 5-pair fleet, 64-request windows
     x = window_inputs(fleets[5], gen, 20.0, w=PAPER_WINDOW)
     calls = window_calls(x, 20.0, 0.5)
     hold(f"P=5 W={PAPER_WINDOW}", calls)
     for n, (kernel, _) in calls.items():
-        res[n]["paper_us_per_window"] = statistics.median(
+        res[n]["paper_us_per_window"] = graph_ms(kernel,
+                                                 TIMED_LAUNCHES) * 1e3
+        res[n]["paper_event_us_per_window"] = statistics.median(
             cuda_ms(kernel, TIMED_LAUNCHES)) * 1e3
 
-    # the largest fleet the wrappers accept: q fills the shared memory
-    big = synthetic_fleet(gen, MAX_PAIRS)
-    x = window_inputs(big, gen, 20.0, w=PAPER_WINDOW)
-    hold(f"P={MAX_PAIRS} W={PAPER_WINDOW}", window_calls(x, 20.0, 0.5))
+    # the P where the hoisted kernel's warp layout changes, and the
+    # largest fleet the wrappers accept (q fills the unhoisted kernel's
+    # shared memory)
+    for P in LAYOUT_EDGES + (MAX_PAIRS,):
+        x = window_inputs(synthetic_fleet(gen, P), gen, 20.0,
+                          w=4 * PAPER_WINDOW)
+        hold(f"P={P} W={4 * PAPER_WINDOW}", window_calls(x, 20.0, 0.5))
 
     # ties: every pair of the 200-pair fleet twice, from empty queues
     twin = fleets[200]
@@ -349,12 +434,17 @@ def kernel_phase(dev):
         x = window_inputs(prof, gen, 20.0, health=mask)
         calls = window_calls(x, 20.0, 0.5)
         hold(case, {"moscore_hoisted_cuda": calls["moscore_hoisted_cuda"]})
+    res["moscore_hoisted_cuda"]["layouts_us_per_window"] = layouts
     print(json.dumps({"kernel_phase": "ok", "W": W, "pairs": list(PAIRS),
                       "us_per_window": {n: res[n]["us_per_window"]
                                         for n in KERNELS},
+                      "event_us_per_window": {
+                          n: res[n]["event_us_per_window"] for n in KERNELS},
                       f"us_per_window_P5_W{PAPER_WINDOW}": {
                           n: res[n]["paper_us_per_window"]
-                          for n in KERNELS}}), flush=True)
+                          for n in KERNELS},
+                      "hoisted_layouts_us_per_window": layouts}),
+          flush=True)
     return res
 
 
@@ -487,16 +577,18 @@ def graph_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def flash_bound(b, sq, sk, h, kv, d, causal, q_elt, kv_elt, ops_per_s):
+def flash_bound(b, sq, sk, h, kv, d, causal, q_elt, kv_elt, ops_per_s,
+                passes=1):
     """Least time (ms): Q and O once, the K/V rows the mask reaches once,
-    over HBM bandwidth; 4 flops per (query, key, d) the mask keeps over
-    the peak of the kernel's arithmetic (bf16 tensor cores, or fp32)."""
+    over HBM bandwidth; 4 flops per (query, key, d) the mask keeps, times
+    the products each takes on the kernel's unit (``passes``: 1 for bf16,
+    2 or 3 for split tf32), over that unit's peak."""
     n_keys = min(sk, sq) if causal else sk
     n_bytes = q_elt * 2 * b * sq * h * d + kv_elt * 2 * b * n_keys * kv * d
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
     ops = 4 * b * h * d * pairs
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_per_s * 1e3
+    ops_ms = passes * ops / ops_per_s * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes_ms=bytes_ms, ops_ms=ops_ms, n_bytes=n_bytes, ops=ops)
@@ -588,24 +680,34 @@ def attention_phase(build_s):
     B, H, D = LM_BATCH, 32, 80
     bf, f32 = torch.bfloat16, torch.float32
     pairs = ((bf, bf), (f32, f32), (f32, bf))
-    # flash: the prefill shape, GQA, ragged non-causal, and head dims that
-    # are no multiple of 16 with Sq > Sk and ragged edges; the tensor-core
-    # kernel takes the bf16 pair, the SIMT kernel a float32 q
-    flash_cases = [((B, LM_PROMPT, LM_MAX_SEQ, H, H, D), True),
-                   ((2, 512, 512, 32, 8, 128), True),
-                   ((1, 300, 333, 4, 4, 80), False),
-                   ((1, 300, 200, 4, 2, 72), True),
-                   ((1, 200, 150, 2, 2, 8), True),
-                   ((1, 333, 77, 2, 1, 40), False)]
+    # flash: the prefill shape, GQA, ragged non-causal, head dims that are
+    # no multiple of 16 with Sq > Sk and ragged edges, and causal prompt
+    # chunks at a query offset into a longer cache (the second chunk of the
+    # LM's two-chunk prefill among them); the bf16 tensor-core kernel takes
+    # the bf16 pair, the split-tf32 kernel a float32 q
+    flash_cases = [((B, LM_PROMPT, LM_MAX_SEQ, H, H, D), True, 0),
+                   ((2, 512, 512, 32, 8, 128), True, 0),
+                   ((1, 300, 333, 4, 4, 80), False, 0),
+                   ((1, 300, 200, 4, 2, 72), True, 0),
+                   ((1, 200, 150, 2, 2, 8), True, 0),
+                   ((1, 333, 77, 2, 1, 40), False, 0),
+                   ((B, LM_PROMPT // 2, LM_MAX_SEQ, H, H, D), True,
+                    LM_PROMPT // 2),
+                   ((2, 100, 300, 8, 2, 80), True, 150),
+                   ((1, 64, 200, 4, 4, 128), True, 136),
+                   ((1, 37, 90, 4, 1, 8), True, 5),
+                   ((2, 130, 400, 4, 4, 72), True, 16)]
     for qdt, kvdt in pairs:
-        for shape, causal in flash_cases:
+        for shape, causal, off in flash_cases:
             q, k, v = flash_case(gen, *shape, qdt, kvdt)
             sc = shape[-1] ** -0.5
-            got = flash_attention_cuda(q, k, v, causal=causal, scale=sc)
-            want = ref_attention(q, k, v, causal=causal, scale=sc)
+            got = flash_attention_cuda(q, k, v, causal=causal, scale=sc,
+                                       q_offset=off)
+            want = ref_attention(q, k, v, causal=causal, scale=sc,
+                                 q_offset=off)
             torch.cuda.synchronize()
-            hold(kernel_for(qdt), f"{shape} causal={causal} {qdt}/{kvdt}",
-                 [got], [want])
+            hold(kernel_for(qdt), f"{shape} causal={causal} q_offset={off} "
+                                  f"{qdt}/{kvdt}", [got], [want])
             del q, k, v, got, want
     # decode partials: the serving cache at the decode steps' kv_len, GQA
     # over a partial cache, and kv_len = 17 of 2048 in four splits
@@ -659,14 +761,23 @@ def attention_phase(build_s):
         r["library_ms"] = graph_ms(library, TIMED_LAUNCHES)
 
     sc = D ** -0.5
-    for name, qdt in (("flash_fwd_mma", bf), ("flash_fwd_simt", f32)):
+    fb = lambda q_elt, peak, passes=1: flash_bound( 
+        B, LM_PROMPT, LM_MAX_SEQ, H, H, D, True, q_elt, 2, peak, passes)
+    for name, qdt in (("flash_fwd_mma", bf), ("flash_fwd_3xtf32", f32)):
         # the LM path's pairs: bf16/bf16, and a float32 q against the bf16
         # cache of the fp32 run
         q, k, v = flash_case(gen, B, LM_PROMPT, LM_MAX_SEQ, H, H, D, qdt, bf)
         qt, kt, vt = (x.transpose(1, 2).to(qdt) for x in (q, k, v))
-        peak = BF16_OPS_PER_S if qdt == bf else F32_OPS_PER_S
-        res[name].update(flash_bound(B, LM_PROMPT, LM_MAX_SEQ, H, H, D, True,
-                                     q.element_size(), 2, peak))
+        if qdt == bf:
+            res[name].update(fb(2, BF16_OPS_PER_S))
+        else:
+            # fp32-accurate work on the tf32 tensor cores: 2 products each
+            # against the bf16 cache (3 against float32 K/V); beside it the
+            # same work on the fp32 pipes
+            res[name].update(fb(4, TF32_OPS_PER_S, 2), terms_ms={
+                "tf32_x2_bf16_kv": fb(4, TF32_OPS_PER_S, 2)["ops_ms"],
+                "tf32_x3_f32_kv": fb(4, TF32_OPS_PER_S, 3)["ops_ms"],
+                "f32_fma": fb(4, F32_OPS_PER_S)["ops_ms"]})
         timed(name,
               lambda: flash_attention_cuda(q, k, v, causal=True, scale=sc),
               lambda: ref_attention(q, k, v, causal=True, scale=sc),
@@ -828,6 +939,35 @@ def trace_lm(cfg, params, prompts, n_steps):
     return out
 
 
+def prefill_in_chunks(cfg, params, prompts, n_chunks):
+    """The prompts written into the cache in ``n_chunks`` equal chunks
+    through ``forward(..., cache_pos=)``: every chunk after the first goes
+    to the flash kernel at a query offset. Returns the last token's
+    logits, the host time (ms) and the kernels' launch counts."""
+    from repro_torch.models import transformer as T
+
+    b, s = prompts.shape
+    step = s // n_chunks
+    caches = T.init_cache(cfg, b, LM_MAX_SEQ)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, s, step):
+        logits, caches = T.forward(cfg, params, prompts[:, lo:lo + step],
+                                   caches=caches, cache_pos=lo)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    want = {"flash_fwd_mma": cfg.n_layers * n_chunks, "flash_fwd_3xtf32": 0,
+            "decode_splits": 0, "decode_fused": 0}
+    for n, w in want.items():
+        check(launches[n] == w, f"{n} launched {launches[n]} times in the "
+                                f"{n_chunks}-chunk prefill, expected {w}")
+    out = logits[:, -1].float()
+    check(bool(torch.isfinite(out).all()), "non-finite chunked logits")
+    return out, ms, launches
+
+
 def serve_one_prompt(cfg, params, prompt):
     """The bf16 path at one prompt: B·KV = 32 of 132 SMs, so
     ``card_splits`` cuts each row's cache into several splits and the
@@ -843,7 +983,7 @@ def serve_one_prompt(cfg, params, prompt):
     zero_counts()
     run = serve(cfg, params, prompt, LM_STEPS, "auto")
     launches = launch_counts()
-    want = {"flash_fwd_mma": cfg.n_layers, "flash_fwd_simt": 0,
+    want = {"flash_fwd_mma": cfg.n_layers, "flash_fwd_3xtf32": 0,
             "decode_splits": 0, "decode_fused": cfg.n_layers * LM_STEPS}
     for n, w in want.items():
         check(launches[n] == w, f"{n} launched {launches[n]} times in the "
@@ -887,8 +1027,8 @@ def lm_phase():
     trace = trace_lm(cfg, params, prompts, LM_TRACED_STEPS)
     # the bf16 path: the tensor-core flash kernel once per layer of the
     # prefill, the fused decode kernel once per layer of every step, and
-    # nothing else (no SIMT flash, no partials and eager combine)
-    want = {"flash_fwd_mma": cfg.n_layers, "flash_fwd_simt": 0,
+    # nothing else (no float32 flash, no partials and eager combine)
+    want = {"flash_fwd_mma": cfg.n_layers, "flash_fwd_3xtf32": 0,
             "decode_splits": 0, "decode_fused": cfg.n_layers * LM_STEPS}
     for n, w in want.items():
         check(launches[n] == w, f"{n} launched {launches[n]} times in the "
@@ -908,19 +1048,27 @@ def lm_phase():
           f"bf16 logits through the kernels differ from the plain path: "
           f"prefill {rel_prefill}, first step {rel_step} "
           f"(bound {LM_BF16_BOUND})")
-    del ref
+    # the same prompts in two chunks: the second at a query offset
+    chunked, chunked_ms, chunked_launches = prefill_in_chunks(
+        cfg, params, prompts, 2)
+    rel_chunked = {"vs_plain": _rel(chunked, ref["prefill_logits"]),
+                   "vs_one_shot": _rel(chunked, run["prefill_logits"])}
+    check(rel_chunked["vs_plain"] < LM_BF16_BOUND,
+          f"two-chunk bf16 prefill logits differ from the plain path: "
+          f"{rel_chunked['vs_plain']} (bound {LM_BF16_BOUND})")
+    del ref, chunked
     one = serve_one_prompt(cfg, params, prompts[:1])
     del params
 
     cfg32 = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS,
                                 dtype="float32")
     p32 = T.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0))
-    # the fp32 path: a float32 q against the bf16 cache, so the SIMT flash
-    # kernel and the fused decode kernel, once per layer
+    # the fp32 path: a float32 q against the bf16 cache, so the split-tf32
+    # flash kernel and the fused decode kernel, once per layer
     zero_counts()
     k32 = serve(cfg32, p32, prompts, 1, "auto")
     launches32 = launch_counts()
-    want = {"flash_fwd_mma": 0, "flash_fwd_simt": LM_F32_LAYERS,
+    want = {"flash_fwd_mma": 0, "flash_fwd_3xtf32": LM_F32_LAYERS,
             "decode_splits": 0, "decode_fused": LM_F32_LAYERS}
     for n, w in want.items():
         check(launches32[n] == w, f"{n} launched {launches32[n]} times in "
@@ -952,7 +1100,12 @@ def lm_phase():
                                      "first_step": rel_step},
            "rel_err_vs_plain_fp32_2_layers": {"prefill": rel32[0],
                                               "first_step": rel32[1]},
-           "greedy_token_agreement": agree, "one_prompt": one}
+           "fp32_2_layers_prefill_ms": {"kernels": k32["prefill_ms"],
+                                        "plain": r32["prefill_ms"]},
+           "greedy_token_agreement": agree, "one_prompt": one,
+           "two_chunk_prefill": {"prefill_ms": chunked_ms,
+                                 "launches": chunked_launches,
+                                 "rel_err_bf16": rel_chunked}}
     print(json.dumps({"lm_serving": row}), flush=True)
     print(json.dumps({"lm_trace": trace}), flush=True)
     return launches, launches32
@@ -964,6 +1117,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    # the build threads below import nothing: two threads importing one
+    # package at once can see it half initialised
+    import repro_torch.kernels.moscore.moscore  # noqa: F401
     from repro_torch.kernels.nvcc_lib import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -975,12 +1131,15 @@ def main() -> int:
                       "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}), flush=True)
-    # the attention library builds (nvcc) while the moscore extension does
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    # the attention library builds (nvcc) while the moscore extension
+    # does, and moscore.cu compiles alone beside them for ptxas's report
+    with ThreadPoolExecutor(max_workers=2) as pool:
         t0 = time.perf_counter()
         lib = pool.submit(lambda: (build(), time.perf_counter() - t0)[1])
+        mo_ptxas = pool.submit(moscore_ptxas)
         res = kernel_phase(dev)
         build_s = lib.result()
+        print(json.dumps({"ptxas_moscore": mo_ptxas.result()}), flush=True)
 
     # each main path is driven with the counts at 0 just before it and
     # read just after: the MO serving path (phases 3-4), then the LM
@@ -995,7 +1154,7 @@ def main() -> int:
     res.update(attention_phase(build_s))
     lm_bf16, lm_fp32 = lm_phase()
     paths = {"flash_fwd_mma": ("LM bf16 prefill", lm_bf16),
-             "flash_fwd_simt": ("LM fp32 prefill", lm_fp32),
+             "flash_fwd_3xtf32": ("LM fp32 prefill", lm_fp32),
              "decode_fused": ("LM bf16 decode", lm_bf16)}
     for n, (_, counts) in paths.items():
         launches[n] = counts[n]
@@ -1018,15 +1177,20 @@ def main() -> int:
                else ("MO serving" if n in KERNELS else None),
                "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"]}
         if n in KERNELS:
-            row.update(serial_floor_ms=r["serial_floor_ms"],
-                       shape={"P": PAIRS[-1], "G": 5, "W": W},
-                       us_per_window=r["us_per_window"],
-                       paper_us_per_window=r["paper_us_per_window"])
+            row.update({k: r[k] for k in (
+                "serial_floor_ms", "event_ms", "us_per_window",
+                "event_us_per_window", "paper_us_per_window",
+                "paper_event_us_per_window")},
+                shape={"P": PAIRS[-1], "G": 5, "W": W})
+            if n == "moscore_hoisted_cuda":
+                row["layouts_us_per_window"] = r["layouts_us_per_window"]
         else:
             row.update({k: r[k] for k in ("shape", "event_ms", "cases",
                                           "atol_needed")
                         + (("tflop_per_s",) if n.startswith("flash")
                            else ("tb_per_s",))})
+        if n == "flash_fwd_3xtf32":
+            row["bound_terms_ms"] = r["terms_ms"]
         if n == "decode_fused":
             row.update({k: r[k] for k in (
                 "ms_by_splits", "batch1_ms_by_splits", "batch1_card_splits",

@@ -5,9 +5,11 @@
 // ::_fa_kernel for the bf16 pair, the only one the bf16 LM path makes
 // (models/layers.py): online-softmax attention with the running max, sum and
 // accumulator in fp32, the -1e30 sentinel for masked scores, causal tiles
-// past the CTA's last query row skipped, and the output in bf16.  Float32
-// queries stay on the SIMT kernel of flash_attention.cu, where the 1e-5
-// tolerance of the fp32 path holds.
+// past the CTA's last query row skipped, and the output in bf16.  Query row
+// i sits at key position i + q_offset (a prompt chunk prefilled into a
+// cache), as in repro.models.layers.mha(q_offset=).  Float32 queries go to
+// flash_attention_3xtf32.cu, where the 1e-5 tolerance of the fp32 path
+// holds.
 //
 // What bounds it on this card: operations.  At the LM prefill shape
 // (B x H = 128, Sq = 2048, Sk = 2560, D = 80, causal) the causal mask keeps
@@ -47,42 +49,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
+using namespace flash;
 using bf16 = __nv_bfloat16;
 
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BQ = 16 * WARPS;     // query rows per CTA
-constexpr int BK = 64;             // keys per tile
 constexpr int PAD = 8;             // bf16 elements of padding per smem row
-constexpr int DMAX = 128;
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// element strides of q/o (b, s, h) and k/v (b, s, kv head); d is unit stride
-struct Strides {
-  long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; 0 source bytes writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -114,30 +88,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [row0, row0 + rows) of a (rows, D) tile with row stride rs into
-// shared memory rows of DP + PAD; rows past n_rows and columns past D are
-// zero-filled
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long rs, int row0, int n_rows,
-                                          int rows, int D) {
-  constexpr int CPR = DP / 8;     // 16-byte chunks per row
-  constexpr int LD = DP + PAD;
-  for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
-    const int r = i / CPR, c = i - r * CPR;
-    const int row = row0 + r;
-    const bool ok = row < n_rows && c * 8 < D;
-    const bf16* s = ok ? src + row * rs + c * 8 : src;
-    cp_async16(smem_u32(dst + r * LD + c * 8), s, ok ? 16 : 0);
-  }
-}
-
 template <int DP>
 __global__ void __launch_bounds__(THREADS, DP <= 80 ? 2 : 1)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                      int G, int Sq, int Sk, int D, Strides st, int causal,
-                     float scale_log2) {
+                     int q_offset, float scale_log2) {
   constexpr int LD = DP + PAD;
   constexpr int KSTEPS = DP / 16;   // k steps of Q.K^T
   constexpr int NT = BK / 8;        // 8-key column tiles of S
@@ -163,18 +119,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vp = v + b * st.vb + kvh * st.vh;
   bf16* op = o + b * st.ob + h * st.oh;
 
-  // keys at or past the CTA's last query row are masked for every row it
+  // keys past the CTA's last query position are masked for every row it
   // owns, so a causal CTA stops there
   const int q_end = min(q0 + BQ, Sq);
-  const int k_end = causal ? min(Sk, q_end) : Sk;
+  const int k_end = causal ? min(Sk, q_end + q_offset) : Sk;
   const int n_tiles = (k_end + BK - 1) / BK;
 
-  load_tile<DP>(Qs, qp, st.qs, q0, Sq, BQ, D);
-  load_tile<DP>(Ks, kp, st.ks, 0, Sk, BK, D);
-  load_tile<DP>(Vs, vp, st.vs, 0, Sk, BK, D);
+  load_tile<bf16, DP, LD>(Qs, qp, st.qs, q0, Sq, BQ, D);
+  load_tile<bf16, DP, LD>(Ks, kp, st.ks, 0, Sk, BK, D);
+  load_tile<bf16, DP, LD>(Vs, vp, st.vs, 0, Sk, BK, D);
   cp_async_commit();
 
   const int w0 = q0 + 16 * warp;    // the warp's first query row
+  const int pos0 = w0 + q_offset;   // and its key position
   float acc[DT][4];
 #pragma unroll
   for (int j = 0; j < DT; ++j)
@@ -187,8 +144,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int stage = it & 1;
     if (it + 1 < n_tiles) {
       const int nxt = stage ^ 1;
-      load_tile<DP>(Ks + nxt * BK * LD, kp, st.ks, (it + 1) * BK, Sk, BK, D);
-      load_tile<DP>(Vs + nxt * BK * LD, vp, st.vs, (it + 1) * BK, Sk, BK, D);
+      load_tile<bf16, DP, LD>(Ks + nxt * BK * LD, kp, st.ks, (it + 1) * BK,
+                              Sk, BK, D);
+      load_tile<bf16, DP, LD>(Vs + nxt * BK * LD, vp, st.vs, (it + 1) * BK,
+                              Sk, BK, D);
     }
     cp_async_commit();
     cp_async_wait<1>();   // Q and tile it have landed; tile it + 1 flies
@@ -196,7 +155,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const int k0 = it * BK;
     // warp-uniform: a warp past Sq, or wholly above this tile, skips it
-    if (w0 < Sq && !(causal && k0 > w0 + 15)) {
+    if (w0 < Sq && !(causal && k0 > pos0 + 15)) {
       const bf16* Kt = Ks + stage * BK * LD;
       const bf16* Vt = Vs + stage * BK * LD;
       float s[NT][4];
@@ -220,7 +179,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
 
-      const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > w0);
+      const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > pos0);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -228,7 +187,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           float x = s[j][e] * scale_log2;
           if (edge) {
             const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-            const int qpos = w0 + g + 8 * (e >> 1);
+            const int qpos = pos0 + g + 8 * (e >> 1);
             if (kpos >= Sk || (causal && kpos > qpos)) x = NEG_INF;
           }
           s[j][e] = x;
@@ -305,17 +264,6 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// one call's arguments, as fa_forward_mma takes them
-struct Problem {
-  const void *q, *k, *v;
-  void* o;
-  int B, H, KV, Sq, Sk, D;
-  Strides st;
-  int causal;
-  float scale;
-  cudaStream_t stream;
-};
-
 template <int DP>
 int launch(const Problem& p) {
   auto kernel = flash_fwd_mma_kernel<DP>;
@@ -327,7 +275,8 @@ int launch(const Problem& p) {
   kernel<<<grid, THREADS, smem, p.stream>>>(
       static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
       static_cast<const bf16*>(p.v), static_cast<bf16*>(p.o), p.H,
-      p.H / p.KV, p.Sq, p.Sk, p.D, p.st, p.causal, p.scale * LOG2E);
+      p.H / p.KV, p.Sq, p.Sk, p.D, p.st, p.causal, p.q_offset,
+      p.scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -338,31 +287,18 @@ extern "C" {
 // q, o: (B, Sq, H, D) bf16; k, v: (B, Sk, KV, D) bf16; any strides with unit
 // stride along D, every other stride a multiple of 8 elements and every
 // pointer 16-byte aligned (strides[12] = q b/s/h, k b/s/h, v b/s/h,
-// o b/s/h, in elements).  Returns the CUDA error of the launch (0 on
-// success).
+// o b/s/h, in elements); q row i at key position i + q_offset >= 0.
+// Returns the CUDA error of the launch (0 on success).
 int fa_forward_mma(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KV, int Sq, int Sk, int D,
-                   const long long* strides, int causal, float scale,
-                   void* stream) {
-  if (D <= 0 || D > DMAX || D % 8 != 0 || KV <= 0 || H % KV != 0 ||
-      Sk <= 0 || (Sq + BQ - 1) / BQ > 65535)
-    return (int)cudaErrorInvalidValue;
+                   const long long* strides, int causal, int q_offset,
+                   float scale, void* stream) {
+  const Problem p = make_problem(q, k, v, o, B, H, KV, Sq, Sk, D, strides,
+                                 causal, q_offset, scale, stream);
+  if (const int err = check(p)) return err;
   if (B == 0 || Sq == 0) return 0;
-  const Problem p{q, k, v, o, B, H, KV, Sq, Sk, D,
-                  Strides{strides[0], strides[1], strides[2], strides[3],
-                          strides[4], strides[5], strides[6], strides[7],
-                          strides[8], strides[9], strides[10], strides[11]},
-                  causal, scale, static_cast<cudaStream_t>(stream)};
-  switch ((D + 15) / 16 * 16) {   // the head dim padded to the mma's k
-    case 16: return launch<16>(p);
-    case 32: return launch<32>(p);
-    case 48: return launch<48>(p);
-    case 64: return launch<64>(p);
-    case 80: return launch<80>(p);
-    case 96: return launch<96>(p);
-    case 112: return launch<112>(p);
-    default: return launch<128>(p);
-  }
+  return dispatch_head_dim(
+      D, [&](auto dp) { return launch<decltype(dp)::value>(p); });
 }
 
 }  // extern "C"

@@ -1,17 +1,20 @@
 """Wrappers of the flash attention CUDA kernels (port of ``_fa_kernel``):
-``csrc/flash_attention_mma.cu`` for a bf16 q against bf16 K/V (tensor
-cores), ``csrc/flash_attention.cu`` for a float32 q against float32 or
-bf16 K/V (fp32 SIMT pipes, where the 1e-5 of the fp32 path holds).
+``csrc/flash_attention_mma.cu`` for a bf16 q against bf16 K/V (bf16
+tensor cores), ``csrc/flash_attention_3xtf32.cu`` for a float32 q against
+float32 or bf16 K/V (tf32 tensor cores with each fp32 operand split in
+two, where the 1e-5 of the fp32 path holds).
 
 ``flash_attention_cuda`` takes the GQA layout, q (B, Sq, H, D) and k/v
 (B, Sk, KV, D), with any strides that keep D contiguous: query head h
 reads KV head h // (H // KV) by index, so no repeated or transposed copy
-of K/V is made. ``flash_attention_bhsd`` keeps the JAX wrapper's
-(BH, S, D) layout. On CPU tensors both run the plain PyTorch version
-(``ref_attention``); on CUDA tensors they launch the kernel that the
-dtypes select (``kernel_for``) or raise, never the other one. Each launch
-adds one to ``flash_attention_cuda.launches`` and to the launched
-kernel's entry of ``flash_attention_cuda.kernel_launches``."""
+of K/V is made. Query row i sits at key position i + ``q_offset``, so a
+chunk of a prompt attends to the cache written before it.
+``flash_attention_bhsd`` keeps the JAX wrapper's (BH, S, D) layout. On
+CPU tensors both run the plain PyTorch version (``ref_attention``); on
+CUDA tensors they launch the kernel that the dtypes select
+(``kernel_for``) or raise, never the other one. Each launch adds one to
+``flash_attention_cuda.launches`` and to the launched kernel's entry of
+``flash_attention_cuda.kernel_launches``."""
 
 from __future__ import annotations
 
@@ -24,13 +27,15 @@ from repro_torch.kernels.nvcc_lib import (attention_library, check_launch,
 #: the kernels keep up to 128 head-dim columns per row; D % 8 == 0
 MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16)
-#: the tensor-core kernel (bf16 q and K/V) and the SIMT one (float32 q)
-KERNELS = ("flash_fwd_mma", "flash_fwd_simt")
+#: the bf16 tensor-core kernel (bf16 q and K/V) and the split-tf32 one
+#: (float32 q)
+KERNELS = ("flash_fwd_mma", "flash_fwd_3xtf32")
 
 
 def kernel_for(q_dtype: torch.dtype) -> str:
     """The CUDA kernel that a query of this dtype launches."""
-    return "flash_fwd_mma" if q_dtype == torch.bfloat16 else "flash_fwd_simt"
+    return "flash_fwd_mma" if q_dtype == torch.bfloat16 \
+        else "flash_fwd_3xtf32"
 
 
 def _check(q, k, v) -> None:
@@ -63,20 +68,27 @@ def _check(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along the head dim")
-        # the tensor-core kernel copies rows in 16-byte pieces
-        if q.dtype == torch.bfloat16 and (any(x % 8 for x in t.stride()[:3])
-                                          or t.data_ptr() % 16):
-            raise ValueError(f"{name}: the bf16 kernel takes strides in "
-                             f"multiples of 8 elements and a 16-byte "
-                             f"aligned start")
+        # both kernels copy rows in 16-byte pieces
+        if any(x * t.element_size() % 16 for x in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernels take strides in "
+                             f"multiples of 16 bytes and a 16-byte aligned "
+                             f"start")
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
+def flash_attention_cuda(q, k, v, *, causal: bool, scale: float,
+                         q_offset: int = 0):
     """Attention of q (B, Sq, H, D) over k/v (B, Sk, KV, D) -> (B, Sq, H, D)
-    in q.dtype, fp32 softmax. ``causal`` is top-left aligned (query i sees
-    keys 0..i), as in ``_fa_kernel``."""
+    in q.dtype, fp32 softmax. With ``causal`` query row i sees keys
+    0..i + ``q_offset`` (top-left aligned at offset 0, as ``_fa_kernel``
+    and ``mha(q_offset=)``)."""
+    q_offset = int(q_offset)
+    if not 0 <= q_offset < 2 ** 30:
+        raise ValueError(f"q_offset {q_offset}: the kernels take a "
+                         f"non-negative int32 offset")
     if q.device.type == "cpu":
-        return ref_attention(q, k, v, causal=causal, scale=scale)
+        return ref_attention(q, k, v, causal=causal, scale=scale,
+                             q_offset=q_offset)
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -84,14 +96,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool, scale: float):
     st = strides_arg(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                      *o.stride()[:3])
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    rest = (b, h, kv, sq, sk, d, st, int(causal), float(scale),
+    rest = (b, h, kv, sq, sk, d, st, int(causal), q_offset, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     kernel = kernel_for(q.dtype)
     lib = attention_library()
     if kernel == "flash_fwd_mma":
         err = lib.fa_forward_mma(*ptrs, *rest)
     else:
-        err = lib.fa_forward(*ptrs, int(k.dtype == torch.bfloat16), *rest)
+        err = lib.fa_forward_3xtf32(*ptrs, int(k.dtype == torch.bfloat16),
+                                    *rest)
     check_launch(f"flash_attention_cuda ({kernel})", err)
     flash_attention_cuda.launches += 1
     flash_attention_cuda.kernel_launches[kernel] += 1

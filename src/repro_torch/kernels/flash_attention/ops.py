@@ -11,9 +11,11 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_cuda)
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D) -> (B, Sq, H, D), scaled by
-    1/sqrt(D). CPU tensors take the plain version, CUDA tensors the
-    kernel."""
+    1/sqrt(D); query row i sits at key position i + ``q_offset`` (a chunk
+    of a prompt prefilled into a cache at that position). CPU tensors
+    take the plain version, CUDA tensors the kernel."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                q_offset=q_offset)

@@ -7,10 +7,12 @@ from __future__ import annotations
 import torch
 
 
-def ref_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+def ref_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
+                  q_offset: int = 0):
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D). fp32 softmax, output in
-    q.dtype. The causal mask is top-left aligned: query i sees keys
-    0..i."""
+    q.dtype. Query row i sits at key position i + ``q_offset``: with
+    ``causal`` it sees keys 0..i + q_offset (top-left aligned at 0, as
+    ``repro.models.layers._causal_mask``)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -18,7 +20,7 @@ def ref_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
     qg = q.reshape(b, sq, kv, g, d).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
     if causal:
-        mask = torch.arange(sq, device=q.device)[:, None] \
+        mask = torch.arange(sq, device=q.device)[:, None] + q_offset \
             >= torch.arange(sk, device=q.device)[None, :]
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)

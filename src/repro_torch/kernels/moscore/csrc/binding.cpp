@@ -12,7 +12,11 @@
 void moscore_hoisted_launch(const float* Tt, const float* Ent, const uint8_t* Ft,
                             const int32_t* gs, const float* q0, int32_t* choices,
                             float* q_final, int P, int W, float g, float omg,
+                            int pairs_per_thread, int warps,
                             cudaStream_t stream);
+
+void hoisted_divide_launch(const float* x, const float* d, float* out, int n,
+                           cudaStream_t stream);
 
 void moscore_launch(const float* Tt, const float* Et, const float* Mt,
                     const int32_t* gs, const float* q0, int32_t* choices,
@@ -24,7 +28,8 @@ namespace {
 void moscore_hoisted(const torch::Tensor& Tt, const torch::Tensor& Ent,
                      const torch::Tensor& Ft, const torch::Tensor& gs,
                      const torch::Tensor& q0, torch::Tensor& choices,
-                     torch::Tensor& q_final, double gamma, double omg) {
+                     torch::Tensor& q_final, double gamma, double omg,
+                     int64_t pairs_per_thread, int64_t warps) {
   const c10::cuda::CUDAGuard guard(Tt.device());
   moscore_hoisted_launch(
       Tt.data_ptr<float>(), Ent.data_ptr<float>(),
@@ -32,7 +37,17 @@ void moscore_hoisted(const torch::Tensor& Tt, const torch::Tensor& Ent,
       q0.data_ptr<float>(), choices.data_ptr<int32_t>(),
       q_final.data_ptr<float>(), static_cast<int>(Tt.size(1)),
       static_cast<int>(gs.size(0)), static_cast<float>(gamma),
-      static_cast<float>(omg), c10::cuda::getCurrentCUDAStream());
+      static_cast<float>(omg), static_cast<int>(pairs_per_thread),
+      static_cast<int>(warps), c10::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void hoisted_divide(const torch::Tensor& x, const torch::Tensor& d,
+                    torch::Tensor& out) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  hoisted_divide_launch(x.data_ptr<float>(), d.data_ptr<float>(),
+                        out.data_ptr<float>(), static_cast<int>(x.numel()),
+                        c10::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -57,4 +72,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("moscore_hoisted", &moscore_hoisted,
         "hoisted Algorithm 1 window scan (CUDA)");
   m.def("moscore", &moscore, "unhoisted Algorithm 1 window scan (CUDA)");
+  m.def("hoisted_divide", &hoisted_divide,
+        "x / d through the hoisted scan's division (CUDA, for its tests)");
 }

@@ -1,7 +1,7 @@
 """Build and load the attention kernels' shared library.
 
-The CUDA sources of ``flash_attention/csrc`` (the tensor-core kernel for
-bf16 and the SIMT kernel for a float32 q) and ``decode_attention/csrc``
+The CUDA sources of ``flash_attention/csrc`` (the bf16 tensor-core kernel
+and the split-tf32 one for a float32 q) and ``decode_attention/csrc``
 expose a plain C interface. At first use they are compiled for sm_90a by
 ``nvcc``, one process per source, all started together, linked into one
 shared library under ``build/torch_ext/`` at the root of the checkout, and
@@ -20,8 +20,10 @@ from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
 SOURCES = (_KERNELS / "flash_attention" / "csrc" / "flash_attention_mma.cu",
-           _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+           _KERNELS / "flash_attention" / "csrc" / "flash_attention_3xtf32.cu",
            _KERNELS / "decode_attention" / "csrc" / "decode_attention.cu")
+#: headers the sources include: they too key the library's name
+HEADERS = (_KERNELS / "flash_attention" / "csrc" / "flash_common.cuh",)
 #: where the library is built: ``build/torch_ext`` in the checkout
 BUILD_DIR = _KERNELS.parents[2] / "build" / "torch_ext"
 #: no fast math: expf and IEEE division keep fp32 within 1e-5 of the
@@ -35,9 +37,9 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 #: (name, restype, argtypes) of every C entry point
 _SIGNATURES = (
     ("fa_forward_mma", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _STRIDES, _I, ctypes.c_float, _P)),
-    ("fa_forward", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _STRIDES, _I, ctypes.c_float, _P)),
+                            _STRIDES, _I, _I, ctypes.c_float, _P)),
+    ("fa_forward_3xtf32", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _STRIDES, _I, _I, ctypes.c_float, _P)),
     ("dec_forward", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _STRIDES, ctypes.c_float, _P)),
     ("dec_forward_fused", _I, (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
@@ -56,7 +58,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libattention-{h.hexdigest()[:16]}.so"
 

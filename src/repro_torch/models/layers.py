@@ -151,12 +151,12 @@ def attention_block(x, w, cfg, *, positions, causal=True, cache=None,
     into it IN PLACE at ``cache_pos``, and the same dict is returned as the
     new cache. Returns (out, new_cache).
 
-    With a cache, on CUDA tensors and ``attn_impl="auto"``: a prompt
-    written from position 0 (s > 1, ``cache_pos == 0``) goes to the flash
-    kernel, causal over the whole cache, whose unfilled tail the causal
-    mask hides; one token (s == 1) goes to the fused decode kernel with
-    ``kv_len = cache_pos + 1``, one int for every row; anything else
-    raises. Without a cache it goes to the flash kernel with ``causal``."""
+    With a cache, on CUDA tensors and ``attn_impl="auto"``: a prompt or a
+    chunk of one (s > 1) goes to the flash kernel with ``q_offset =
+    cache_pos``, causal over the whole cache, whose unfilled tail the
+    causal mask hides; one token (s == 1) goes to the fused decode kernel
+    with ``kv_len = cache_pos + 1``, one int for every row. Without a cache
+    it goes to the flash kernel with ``causal``."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     b, s, d = x.shape
@@ -188,13 +188,8 @@ def attention_block(x, w, cfg, *, positions, causal=True, cache=None,
                 o = mha(q, ck, cv, causal=True, q_offset=pos)
         elif s == 1:
             o = decode_attention(q[:, 0], ck, cv, pos + 1)[:, None]
-        elif pos == 0:
-            o = flash_attention(q, ck, cv, causal=True)
         else:
-            raise NotImplementedError(
-                f"a {s}-token prefill at cache position {pos}: the flash "
-                f"kernel has no query offset (only cache_pos == 0 or one "
-                f"token); use attn_impl='ref'")
+            o = flash_attention(q, ck, cv, causal=True, q_offset=pos)
     elif plain:
         if s >= 8192:   # long sequence: stream query chunks
             o = chunked_mha(q, kx, vx, causal=causal)

@@ -105,6 +105,44 @@ def test_flash_plain_versions_match_jax(b, sq, sk, h, kv, d, causal, dtype):
     assert flash_attention_cuda.launches == n0     # CPU: no launch
 
 
+# (b, sq, sk, h, kv, d): causal prompt chunks against a longer cache, as a
+# chunked prefill makes them (Sq + q_offset <= Sk), GQA among them
+OFFSET_CASES = [(1, 16, 64, 2, 2, 64), (2, 24, 48, 4, 2, 80),
+                (1, 40, 56, 4, 1, 16)]
+
+
+@pytest.mark.parametrize("q_offset", [0, 5, 16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", OFFSET_CASES)
+def test_flash_with_query_offset_matches_jax_mha(b, sq, sk, h, kv, d,
+                                                  q_offset):
+    """Query row i at key position i + q_offset: ``ref_attention``,
+    ``flash_attention`` and ``flash_attention_cuda`` on CPU tensors against
+    JAX ``mha(..., q_offset=)``, causal, in float32 at 1e-5."""
+    rng = np.random.default_rng(q_offset + d)
+    qj, qt = _pair(rng, (b, sq, h, d), "float32")
+    kj, kt = _pair(rng, (b, sk, kv, d), "float32")
+    vj, vt = _pair(rng, (b, sk, kv, d), "float32")
+    want = _np(jax_mha(qj, kj, vj, causal=True, q_offset=q_offset))
+    n0 = flash_attention_cuda.launches
+    scale = 1.0 / d ** 0.5
+    got = {
+        "ref_attention": ref_attention(qt, kt, vt, causal=True,
+                                       q_offset=q_offset),
+        "flash_attention": flash_attention(qt, kt, vt, causal=True,
+                                           q_offset=q_offset),
+        "flash_attention_cuda": flash_attention_cuda(
+            qt, kt, vt, causal=True, scale=scale, q_offset=q_offset),
+    }
+    for name, o in got.items():
+        assert o.dtype == qt.dtype and o.shape == qt.shape, name
+        np.testing.assert_allclose(_np(o), want, err_msg=name,
+                                   **_tol("float32"))
+    assert flash_attention_cuda.launches == n0     # CPU: no launch
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_cuda(qt, kt, vt, causal=True, scale=scale,
+                             q_offset=-1)
+
+
 # (b, s, h, kv, d, kv_len, n_splits): the four cases of
 # tests/test_kernels.py (kv_len = 17 of 2048 in 4 splits leaves three
 # splits wholly masked), one split at head dim 80, the split count picked

@@ -16,7 +16,10 @@ from repro_torch.core.policies import mo_precompute, mo_scan_hoisted
 from repro_torch.core.profiles import ProfileTable
 from repro_torch.kernels.moscore import (moscore_cuda, moscore_hoisted_cuda,
                                          moscore_route)
-from repro_torch.kernels.moscore.moscore import MAX_PAIRS
+from repro_torch.kernels.moscore.moscore import (HOISTED_MAX_WARPS,
+                                                 HOISTED_PAIRS_PER_THREAD,
+                                                 MAX_PAIRS, extension,
+                                                 hoisted_layout)
 from repro_torch.serving import ServingPlane
 
 
@@ -88,6 +91,153 @@ def test_kernels_at_max_pairs_equal_plain_versions(cuda_device):
         for a, b in zip(got, want):
             assert torch.equal(a, b), backend
     assert _launches() == (n0[0] + 1, n0[1] + 1)
+
+
+def _every_layout_equals_plain(Tt, Ent, Ft, gs, q0, gamma):
+    """The hoisted kernel through its wrapper, and in every layout it is
+    built for that fits P, against ``mo_scan_hoisted``."""
+    want = mo_scan_hoisted(Tt, Ent, Ft, gs, q0, gamma=gamma)
+    n0 = moscore_hoisted_cuda.launches
+    got = moscore_hoisted_cuda(Tt, Ent, Ft, gs, q0, gamma=gamma)
+    assert moscore_hoisted_cuda.launches == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), "wrapper"
+    P = Tt.shape[1]
+    for k in HOISTED_PAIRS_PER_THREAD:
+        try:
+            k, warps = hoisted_layout(P, k)
+        except ValueError:              # more warps than one CTA takes
+            continue
+        ch, qf = torch.empty_like(gs), torch.empty_like(q0)
+        extension().moscore_hoisted(Tt, Ent, Ft, gs, q0, ch, qf, gamma,
+                                    1.0 - gamma, k, warps)
+        torch.cuda.synchronize()
+        assert torch.equal(ch, want[0]), (k, warps)
+        assert torch.equal(qf, want[1]), (k, warps)
+
+
+@pytest.mark.parametrize("n_pairs", [1, 31, 32, 33, 255, 256, 257, 1024,
+                                     MAX_PAIRS, 384, 385, 768, 769, 2048,
+                                     2049])
+def test_hoisted_kernel_where_the_warp_layout_changes(n_pairs, cuda_device):
+    """P on both sides of one warp (32 pairs at one per lane), of the
+    default layout's eight warps (256) and of its second pair per thread,
+    the path's 1024 and the largest P: every layout equals the plain
+    scan."""
+    prof, gs, q0 = _case(n_pairs, 256, cuda_device)
+    feas, En = mo_precompute(prof.T, prof.E, prof.mAP, delta=20.0)
+    _every_layout_equals_plain(*(x.t().contiguous()
+                                 for x in (prof.T, En, feas)), gs, q0, 0.5)
+
+
+def test_hoisted_launcher_refuses_layouts_it_does_not_cover(cuda_device):
+    """The launcher runs every layout ``hoisted_layout`` may pick (the
+    most warps of ``HOISTED_MAX_WARPS`` at each K, so the Python table stays
+    within the kernel's own limits) and refuses, running no kernel, a K it
+    is not built for, a warp more than its limit, and a layout that leaves
+    pairs unscanned: the call raises and leaves the outputs untouched."""
+    for k in HOISTED_PAIRS_PER_THREAD:
+        warps = HOISTED_MAX_WARPS[k]
+        P = min(32 * k * warps, MAX_PAIRS)
+        prof, gs, q0 = _case(P, 16, cuda_device)
+        feas, En = mo_precompute(prof.T, prof.E, prof.mAP, delta=20.0)
+        Tt, Ent, Ft = (x.t().contiguous() for x in (prof.T, En, feas))
+        want = mo_scan_hoisted(Tt, Ent, Ft, gs, q0, gamma=0.5)
+
+        def run(k, warps):
+            ch = torch.full_like(gs, -1)
+            qf = torch.full_like(q0, -1.0)
+            try:
+                extension().moscore_hoisted(Tt, Ent, Ft, gs, q0, ch, qf, 0.5,
+                                            0.5, k, warps)
+            finally:
+                torch.cuda.synchronize()
+                run.outputs = ch, qf
+            return ch, qf
+
+        got = run(k, warps)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        bad = [(k, warps + 1), (k, 0), (3, 32)]
+        if warps > 1:
+            bad.append((k, -(-P // (32 * k)) - 1))
+        for kk, ww in bad:
+            with pytest.raises(RuntimeError, match="invalid configuration"):
+                run(kk, ww)
+            assert all((x == -1).all() for x in run.outputs), (kk, ww)
+
+
+def test_hoisted_division_equals_ieee_division(cuda_device):
+    """The hoisted kernel's division (``__fdiv_rn``'s fast path with a
+    reciprocal per denominator, ``__fdiv_rn`` itself outside exponents of
+    +-40) against the card's IEEE division, bit for bit: denominators from
+    the scan's 1e-9 floor up, numerators from 0 to the denominator and far
+    below it, integers (exact quotients), and operands outside the range."""
+    from repro_torch.kernels.moscore.moscore import hoisted_divide
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    n = 1 << 22
+    u = lambda: torch.rand(n, generator=gen, device=cuda_device)
+    d = torch.exp2(u() * 66 - 30)
+    cases = [(d * u(), d), (d * torch.exp2(-u() * 60), d),
+             (torch.randint(0, 1 << 24, (n,), generator=gen,
+                            device=cuda_device).float(),
+              torch.randint(1, 1 << 12, (n,), generator=gen,
+                            device=cuda_device).float()),
+             (torch.exp2(u() * 200 - 100), torch.exp2(u() * 120 - 60)),
+             (torch.zeros(n, device=cuda_device), d)]
+    for x, y in cases:
+        x, y = x.float(), y.float()
+        got = hoisted_divide(x, y)
+        assert torch.equal(got.view(torch.int32), (x / y).view(torch.int32))
+
+
+def test_hoisted_kernel_on_unaligned_tables(cuda_device):
+    """Contiguous tables that start one element past an aligned address:
+    the kernel reads them pair by pair instead of in vectors, with the
+    same result."""
+    prof, gs, q0 = _case(1024, 512, cuda_device)
+    feas, En = mo_precompute(prof.T, prof.E, prof.mAP, delta=20.0)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    tables = [shifted(x.t().contiguous()) for x in (prof.T, En, feas)]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in tables)
+    _every_layout_equals_plain(*tables, gs, q0, 0.5)
+
+
+@pytest.mark.parametrize("gamma", [0.0, 1.0, 0.5])
+@pytest.mark.parametrize("n_pairs", [40, 300, 1024])
+def test_hoisted_kernel_ties_empty_groups_and_zero_latency(n_pairs, gamma,
+                                                           cuda_device):
+    """Tables made for ties: latencies of a few levels with zeros among
+    them, energies of three levels, pairs copied across every warp
+    boundary and the first lane boundaries of each layout, a group with
+    no feasible pair (every request of it takes pair 0), and gamma 0 and
+    1 (energy or latency alone). The first index wins each tie, as in the
+    plain scan."""
+    rng = np.random.default_rng(n_pairs + int(10 * gamma))
+    G = 4
+    T = rng.integers(0, 4, (G, n_pairs)).astype(np.float32) * 0.5
+    En = rng.integers(0, 3, (G, n_pairs)).astype(np.float32) * 0.5
+    F = rng.random((G, n_pairs)) < 0.7
+    F[G - 1] = False                    # no feasible pair: choice 0
+    q0 = rng.integers(0, 3, n_pairs).astype(np.float32)
+    for k in HOISTED_PAIRS_PER_THREAD:  # twins across warp and lane
+        for b in [*range(32 * k, n_pairs, 32 * k), k, 3 * k, 5 * k]:
+            if b < n_pairs:
+                for x in (T, En, F):
+                    x[:, b] = x[:, b - 1]
+                q0[b] = q0[b - 1]
+    gs = rng.integers(0, G, 512).astype(np.int32)
+    dev = cuda_device
+    args = [torch.from_numpy(x).to(dev) for x in (T, En, F, gs, q0)]
+    _every_layout_equals_plain(*args, gamma)
+    choices, _ = mo_scan_hoisted(*args, gamma=gamma)
+    assert not choices[args[3] == G - 1].any()
 
 
 @pytest.mark.parametrize("degraded", [False, True])
@@ -215,11 +365,52 @@ def test_flash_kernel_equals_plain_version(b, sq, sk, h, kv, d, causal,
     want = ref_attention(q, k, v, causal=causal, scale=d ** -0.5)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == n0 + 1
-    # the bf16 pair runs on the tensor cores, a float32 q on the SIMT pipes
-    ran = "flash_fwd_mma" if dtype == "bfloat16" else "flash_fwd_simt"
+    # the bf16 pair runs in bf16, a float32 q on split tf32
+    ran = "flash_fwd_mma" if dtype == "bfloat16" else "flash_fwd_3xtf32"
     assert flash_attention_cuda.kernel_launches == {
         n: c + (n == ran) for n, c in k0.items()}
     assert got.dtype == qdt and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_att_tol(qdt))
+
+
+# (b, sq, sk, h, kv, d, q_offset): causal prompt chunks at a query offset
+# into a longer cache (Sq + q_offset < Sk, the unfilled tail masked), at
+# head dims 8, 72, 80 and 128, with and without GQA, offsets inside and
+# at the edge of a key tile
+OFFSET_GRID = [
+    (1, 64, 256, 2, 2, 8, 100),
+    (2, 100, 300, 8, 2, 72, 150),
+    (2, 257, 600, 4, 4, 80, 64),
+    (1, 130, 512, 8, 2, 80, 1),
+    (1, 64, 200, 4, 1, 128, 136),
+    (1, 1024, 2560, 2, 2, 80, 1024),
+]
+
+
+@pytest.mark.parametrize("dtype", list(ATT_DTYPES))
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,q_offset", OFFSET_GRID)
+def test_flash_kernel_with_query_offset_equals_plain_version(
+        b, sq, sk, h, kv, d, q_offset, dtype, cuda_device):
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     kernel_for,
+                                                     ref_attention)
+
+    qdt, kvdt = ATT_DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(q_offset + d)
+    q = _randn(gen, (b, sq, h, d), qdt, cuda_device)
+    k = _randn(gen, (b, sk, kv, d), kvdt, cuda_device)
+    v = _randn(gen, (b, sk, kv, d), kvdt, cuda_device)
+    k0 = dict(flash_attention_cuda.kernel_launches)
+    got = flash_attention_cuda(q, k, v, causal=True, scale=d ** -0.5,
+                               q_offset=q_offset)
+    want = ref_attention(q, k, v, causal=True, scale=d ** -0.5,
+                         q_offset=q_offset)
+    torch.cuda.synchronize()
+    ran = kernel_for(qdt)
+    assert ran == ("flash_fwd_mma" if dtype == "bfloat16"
+                   else "flash_fwd_3xtf32")
+    assert flash_attention_cuda.kernel_launches == {
+        n: c + (n == ran) for n, c in k0.items()}
     torch.testing.assert_close(got.float(), want.float(), **_att_tol(qdt))
 
 
@@ -398,9 +589,45 @@ def test_reduced_lm_through_kernels_matches_cpu(model, cuda_device):
     ran = kernel_for(on_card["embed"].dtype)
     assert flash_attention_cuda.kernel_launches == {
         n: c + cfg.n_layers * (n == ran) for n, c in k0.items()}
-    with pytest.raises(NotImplementedError, match="query offset"):
-        T.forward(cfg, on_card, tok[:, :2].to(cuda_device), caches=c_gpu,
-                  cache_pos=19)
+    # two tokens at cache position 19: the flash kernel at a query offset
+    l_cpu, _ = T.forward(cfg, params, tok[:, :2], caches=c_cpu,
+                         cache_pos=19)
+    l_gpu, _ = T.forward(cfg, on_card, tok[:, :2].to(cuda_device),
+                         caches=c_gpu, cache_pos=19)
+    assert flash_attention_cuda.launches - n0[0] == 2 * cfg.n_layers
+    assert rel(l_gpu, l_cpu) < tol
+
+
+@pytest.mark.parametrize("model", ["stablelm-3b-reduced", "gqa",
+                                   "stablelm-3b-reduced-bf16"])
+def test_two_chunk_prefill_through_kernels_matches_one_shot(model,
+                                                            cuda_device):
+    """A 24-token prompt prefilled on the card in chunks of 16 and 8
+    through ``forward(..., cache_pos=)``: one flash launch per layer per
+    chunk (the second at query offset 16), and its last logits against the
+    one-shot ``prefill`` on the card: 3e-2 of the largest logit in
+    bfloat16 (the chunk's q and the cache round to bfloat16 at other
+    places than the one-shot prompt's), 2e-5 in float32."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import transformer as T
+
+    cfg = _lm_models()[model]
+    tol = 3e-2 if cfg.dtype == "bfloat16" else 2e-5
+    params = T.init_params(cfg, torch.Generator().manual_seed(4),
+                           device="cpu")
+    on_card = _to(params, cuda_device)
+    tok = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 24))).to(cuda_device)
+    one, _ = T.prefill(cfg, on_card, tok, T.init_cache(cfg, 2, 40))
+    caches = T.init_cache(cfg, 2, 40)
+    n0 = flash_attention_cuda.launches
+    for lo, hi in ((0, 16), (16, 24)):
+        logits, caches = T.forward(cfg, on_card, tok[:, lo:hi],
+                                   caches=caches, cache_pos=lo)
+    assert flash_attention_cuda.launches - n0 == 2 * cfg.n_layers
+    err = (logits[:, -1].float() - one.float()).abs().max() \
+        / one.float().abs().max()
+    assert float(err) < tol
 
 
 def test_forward_without_cache_through_flash_kernel(cuda_device):

@@ -245,6 +245,40 @@ def test_attention_block_with_cache_matches_jax(model):
             decode_attention_cuda.launches) == n0     # CPU: plain path
 
 
+@pytest.mark.parametrize("model", ["stablelm-3b-reduced", "gqa"])
+def test_attention_block_chunk_at_cache_pos_matches_jax(model):
+    """A multi-token chunk written at ``cache_pos > 0`` (after an 8-token
+    prompt), as a chunked prefill makes it: the output (the causal mask at
+    query offset ``cache_pos``) and the caches written in place, against
+    JAX's ``attention_block`` at the same position."""
+    cfg = MODELS[model]
+    wj, wt, xj, xt = _block_inputs(cfg)
+    jcfg = _jax_cfg(cfg)
+    shape = (2, 24, cfg.n_kv_heads, cfg.hd)
+    cj = {"k": jnp.zeros(shape, jnp.bfloat16),
+          "v": jnp.zeros(shape, jnp.bfloat16)}
+    ct = {"k": torch.zeros(shape, dtype=torch.bfloat16),
+          "v": torch.zeros(shape, dtype=torch.bfloat16)}
+    n0 = flash_attention_cuda.launches, decode_attention_cuda.launches
+    pos = np.arange(8, dtype=np.int32)[None].repeat(2, 0)
+    _, cj = JL.attention_block(xj, wj, jcfg, positions=jnp.asarray(pos),
+                               cache=cj, cache_pos=0)
+    L.attention_block(xt, wt, cfg, positions=torch.from_numpy(pos),
+                      cache=ct, cache_pos=0)
+    x2j, x2t = _pair(np.random.default_rng(9), (2, 5, cfg.d_model))
+    p2 = np.arange(8, 13, dtype=np.int32)[None].repeat(2, 0)
+    oj, cj = JL.attention_block(x2j, wj, jcfg, positions=jnp.asarray(p2),
+                                cache=cj, cache_pos=8)
+    ot, ct = L.attention_block(x2t, wt, cfg, positions=torch.from_numpy(p2),
+                               cache=ct, cache_pos=8)
+    assert ot.shape == (2, 5, cfg.d_model)
+    assert _rel(ot, oj) < 1e-4          # reads the bfloat16 cache
+    for f in ("k", "v"):
+        assert _rel(ct[f], cj[f]) < 4e-3
+    assert (flash_attention_cuda.launches,
+            decode_attention_cuda.launches) == n0     # CPU: plain path
+
+
 def test_attention_block_rejects_what_it_does_not_take():
     cfg = MODELS["gqa"]
     _, wt, _, xt = _block_inputs(cfg)
@@ -302,6 +336,34 @@ def test_prefill_then_greedy_decode_matches_jax(model):
                 f"decode step {step} cache {f}"
     assert (flash_attention_cuda.launches,
             decode_attention_cuda.launches) == n0     # CPU: plain path
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+def test_two_chunk_prefill_matches_one_shot_and_jax(model):
+    """A 16-token prompt prefilled in two chunks of 10 and 6 tokens through
+    ``forward(..., cache_pos=)``: the last chunk's logits equal the one-shot
+    ``prefill``'s last-token logits and JAX's two-chunk ``forward`` on the
+    same numpy weights, and so do the caches."""
+    cfg = MODELS[model]
+    tol = 2e-2 if cfg.dtype == "bfloat16" else 5e-5
+    jcfg = _jax_cfg(cfg)
+    jp, tp = _carry(cfg, 1)
+    tok = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16))
+    one, c1 = T.prefill(cfg, tp, torch.from_numpy(tok),
+                        T.init_cache(cfg, 2, 32, device="cpu"))
+    ct = T.init_cache(cfg, 2, 32, device="cpu")
+    cj = JT.init_cache(jcfg, 2, 32)
+    for lo, hi in ((0, 10), (10, 16)):
+        lt, ct = T.forward(cfg, tp, torch.from_numpy(tok[:, lo:hi]),
+                           caches=ct, cache_pos=lo)
+        lj, cj = JT.forward(jcfg, jp, jnp.asarray(tok[:, lo:hi], jnp.int32),
+                            caches=cj, cache_pos=lo)
+        assert lt.shape == (2, hi - lo, cfg.vocab_size)
+        assert _rel(lt, lj) < tol, f"chunk at {lo}"
+    assert _rel(lt[:, -1], one) < tol
+    for f in ("k", "v"):
+        assert _rel(ct[f], cj[f]) < max(tol, 4e-3), f
+        assert _rel(ct[f], c1[f]) < max(tol, 4e-3), f
 
 
 def test_forward_without_cache_matches_jax():

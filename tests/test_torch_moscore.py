@@ -139,3 +139,42 @@ def test_kernel_wrappers_run_plain_versions_on_cpu():
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert (moscore_cuda.launches, moscore_hoisted_cuda.launches) == n0
+
+
+def test_hoisted_layout():
+    """The hoisted kernel's layout: one warp up to 32 pairs, then 1 and 2
+    pairs per thread up to twelve warps each, 4 up to sixteen, then 16 per
+    thread up to 24 warps; every layout covers P, no warp is idle, and
+    none has more warps than the kernel is built for at its K."""
+    from repro_torch.kernels.moscore.moscore import (
+        HOISTED_MAX_WARPS, HOISTED_PAIRS_PER_THREAD, MAX_PAIRS,
+        hoisted_layout)
+
+    assert hoisted_layout(5) == (1, 1)          # the paper fleet: one warp
+    assert hoisted_layout(32) == (1, 1)
+    assert hoisted_layout(33) == (1, 2)
+    assert hoisted_layout(256) == (1, 8)
+    assert hoisted_layout(257) == (1, 9)
+    assert hoisted_layout(384) == (1, 12)
+    assert hoisted_layout(385) == (2, 7)
+    assert hoisted_layout(768) == (2, 12)
+    assert hoisted_layout(769) == (4, 7)
+    assert hoisted_layout(1024) == (4, 8)
+    assert hoisted_layout(2048) == (4, 16)
+    assert hoisted_layout(2049) == (16, 5)
+    assert hoisted_layout(MAX_PAIRS) == (16, 24)
+    for P in (1, 7, 31, 32, 33, 100, 255, 256, 257, 384, 385, 768, 769,
+              1000, 1024, 2048, 2049, 4096, 5000, MAX_PAIRS):
+        for k in (None, *HOISTED_PAIRS_PER_THREAD):
+            try:
+                kk, warps = hoisted_layout(P, k)
+            except ValueError:
+                assert k is not None
+                assert -(-P // (32 * k)) > HOISTED_MAX_WARPS[k]
+                continue
+            assert kk in HOISTED_PAIRS_PER_THREAD and (k is None or kk == k)
+            assert 32 * warps * kk >= P > 32 * (warps - 1) * kk
+            assert warps <= HOISTED_MAX_WARPS[kk]
+    for bad in ((0, None), (100, 3), (100, 8), (12289, 16)):
+        with pytest.raises(ValueError):
+            hoisted_layout(*bad)
